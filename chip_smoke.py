@@ -7,12 +7,17 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``.
 Phases, one JSON line each on stdout:
 
 1. device  -- the card (nvidia-smi name and power limit), torch and CUDA.
-2. build   -- compile ``src/repro_torch/csrc/dram_timing.cu`` for sm_90a into
-              ``build/repro_torch/`` (nvcc, plain C interface, ctypes).
-3. kernel  -- the DRAM-timing kernel against its plain PyTorch version on the
-              same CUDA tensors, bit for bit: random [64, 4096] batches for
-              every preset x page policy, and the first 8,192 requests of the
-              real ``lj/hitgraph/bfs`` batch.
+2. build   -- compile ``src/repro_torch/csrc/{dram_timing,edge_update,spmv}.cu``
+              for sm_90a into ``build/repro_torch/`` (one nvcc per source, all
+              started together; plain C interface, ctypes).
+3. kernel  -- each kernel against its plain PyTorch version on the same CUDA
+              tensors.  DRAM timing, bit for bit: random [64, 4096] batches
+              for every preset x page policy, and the first 8,192 requests of
+              the real ``lj/hitgraph/bfs`` batch.  Edge update, bit for bit:
+              random f32 (+inf sources, src -1 edges, empty segments,
+              negative values) and int32 (int32-max sources) inputs, and the
+              real ``lj`` HitGraph min layout.  SpMV: the real ``lj`` PageRank
+              ELL layout, with its max abs error.
 4. main    -- the main path at full size: 18 scenarios on the paper graph
               ``lj`` and the 8 tiny golden scenarios through
               ``run_accelerator(..., device=None)``, i.e. on the card.  Every trace hash, TimingReport field, iteration count and
@@ -21,9 +26,20 @@ Phases, one JSON line each on stdout:
               ``benchmarks/golden_hashes_tiny.json``; hits/misses/conflicts
               must equal the exact host classifier; BFS values must equal the
               port's ``reference_solve`` on the card.
-5. kernels -- one line per ported kernel: launches on the main path, its
-              time at the main path's largest bucket (CUDA events), its
-              bound, and the plain version's time.
+5. main_device -- the ``semexec="device"`` path at full size: all 16
+              (accelerator, problem) pairs of ``semexec.SUPPORTED`` on ``lj``,
+              each on its accelerator's own DRAM preset, through
+              ``run_accelerator(..., AccelConfig(semexec="device"),
+              device=None)``.  Every pair must equal the numpy engine run on
+              the same card (trace hash, TimingReport, iterations; min values
+              bit-equal, acc values allclose) and record
+              ``layout["engine"] == "device"``; the 8 bfs/pr pairs must equal
+              the goldens too.  The edge-update and SpMV kernels must have
+              launched.
+6. kernels -- one line per ported kernel: launches on its path, its time at
+              the path's largest call (CUDA events), its bound, the plain
+              version's time and, where one PyTorch call computes the same
+              function, that call's time.
 
 Any mismatch raises and the exit code is nonzero; without a CUDA card, or
 outside the repository, it exits nonzero before printing any result.  The
@@ -52,6 +68,10 @@ PEAK_SCALAR_OPS_PER_S = 67e12
 # int32 operations per valid request in the state machine's update
 # (compares, max, adds and selects of one step; see csrc/dram_timing.cu).
 OPS_PER_REQUEST = 20
+KERNELS = ("dram_timing", "edge_update", "spmv")
+# acc values of the device engine against the numpy engine: the sums
+# associate in another order than np.add.at (tests/test_semexec.py:58)
+ACC_RTOL, ACC_ATOL = 1e-5, 1e-6
 
 
 def emit(obj: dict) -> None:
@@ -168,6 +188,95 @@ def phase_kernel_vs_plain(dev, lj_batch) -> int:
               random_shape=[B, L], lj_shape=[int(bank.shape[0]), cut],
               seconds=round(time.perf_counter() - t0, 3)))
     return worst
+
+
+def lj_device_layouts(graphs: dict, dev):
+    """The real ``lj`` layouts of the device path: HitGraph's bfs min layout
+    (every routed edge, as ``semexec.HitGraphDevice`` builds it) and the
+    PageRank accumulation layout with its ELL."""
+    from repro_torch.configs.graphsim import default_config
+    from repro_torch.core import semexec
+    from repro_torch.core.accelerators.hitgraph import HitGraph
+    from repro_torch.graph.partition import horizontal_partition
+    from repro_torch.graph.problems import PROBLEMS
+
+    g = graphs["lj"]
+    ivl = default_config("hitgraph").effective_interval
+    parts = horizontal_partition(g, ivl, by="src")
+    prep = [HitGraph._partition_prep(g, parts.edge_idx[i], parts.k, ivl, True, False)
+            for i in range(parts.k)]
+    lay_min = semexec._build_hitgraph_min(g, PROBLEMS["bfs"], prep, parts.k, ivl, dev)
+    w_eff = semexec._acc_weight("pr", g.src, None, g.degrees_out)
+    return lay_min, semexec._acc_layout(g.src, g.dst, w_eff, g.n, dev)
+
+
+def phase_edge_update_vs_plain(dev, graphs: dict, lay_min) -> int:
+    """Edge-update kernel == plain, bit for bit, on the same CUDA tensors;
+    returns the max abs error (0, or the script has already failed)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.graph.problems import PROBLEMS, reference_solve
+    from repro_torch.kernels.edge_update import edge_update, edge_update_plain
+
+    rng = np.random.default_rng(2025)
+    n, m = 100_000, 1_000_000
+    src = rng.integers(0, n, size=m).astype(np.int32)
+    src[rng.random(m) < 0.05] = -1  # skipped edges
+    dst = rng.integers(0, n // 2, size=m).astype(np.int32)  # upper half empty
+    vf = (rng.standard_normal(n) * 10).astype(np.float32)  # negative values too
+    vf[rng.random(n) < 0.3] = np.inf  # unreached sources
+    df = (rng.standard_normal(m) * 3).astype(np.float32)
+    vi = rng.integers(0, 1000, size=n).astype(np.int32)
+    vi[rng.random(n) < 0.3] = np.iinfo(np.int32).max  # saturated sources
+    di = rng.integers(-5, 6, size=m).astype(np.int32)
+    on = lambda *arrays: [torch.from_numpy(a).to(dev) for a in arrays]  # noqa: E731
+    cases = [("random-f32", *on(src, dst, df, vf)), ("random-i32", *on(src, dst, di, vi))]
+    # the real lj HitGraph layout, mid-BFS: levels with 40% of vertices
+    # unreached and 30% of edges masked, as update filtering does
+    g = graphs["lj"]
+    levels, _ = reference_solve(g, PROBLEMS["bfs"], graph_spec("lj").root, device=dev)
+    levels[rng.random(g.n) < 0.4] = np.inf
+    kept = torch.from_numpy(rng.random(lay_min["src"].shape[0]) < 0.7).to(dev)
+    cases.append(("lj/hitgraph/bfs", torch.where(kept, lay_min["src"], -1),
+                  lay_min["dst"], lay_min["delta"], *on(levels)))
+    t0 = time.perf_counter()
+    for label, *args in cases:
+        got = edge_update(*args)
+        want = edge_update_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"edge_update kernel != plain on {label}: "
+              f"{int((got != want).sum())} of {got.numel()} differ")
+    emit(dict(phase="kernel", kernel="edge_update", cases=len(cases), max_abs_err=0,
+              random_shape=[m, n], lj_shape=[int(lay_min["src"].shape[0]), g.n],
+              seconds=round(time.perf_counter() - t0, 3)))
+    return 0
+
+
+def phase_spmv_vs_plain(dev, lay_acc, n: int) -> float:
+    """SpMV kernel against plain on the real lj PageRank ELL; returns the
+    max abs error, which should be 0 (same column order and roundings)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.spmv import spmv_coo_plain, spmv_ell, spmv_ell_plain
+
+    idx, val = lay_acc["ell"]
+    x = torch.from_numpy(np.random.default_rng(7).random(n).astype(np.float32)).to(dev)
+    t0 = time.perf_counter()
+    got = spmv_ell(idx, val, x)
+    want = spmv_ell_plain(idx, val, x)
+    coo = spmv_coo_plain(lay_acc["src"], lay_acc["dst"], lay_acc["w"], x, n)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=ACC_RTOL, atol=ACC_ATOL),
+          f"spmv kernel != plain on the lj ELL: max abs err {err}")
+    check(torch.allclose(got[:n], coo, rtol=ACC_RTOL, atol=ACC_ATOL),
+          "spmv kernel disagrees with the COO sum on the lj ELL")
+    emit(dict(phase="kernel", kernel="spmv", cases=1, max_abs_err=err,
+              bit_equal=bool(torch.equal(got, want)), ell_shape=list(idx.shape),
+              seconds=round(time.perf_counter() - t0, 3)))
+    return err
 
 
 def tiny_scenarios() -> list[dict]:
@@ -388,6 +497,242 @@ def phase_kernel_timing(dev, batch) -> dict:
                 max_abs_err=err, shape=[B, L], requests=requests)
 
 
+def device_pairs() -> list[tuple[str, str]]:
+    from repro_torch.core import semexec
+
+    return [(a, p) for a, probs in sorted(semexec.SUPPORTED.items()) for p in sorted(probs)]
+
+
+class KernelRecorder:
+    """Times every wrapper call the path makes, with CUDA events around the
+    port's own call sites (the wrappers still do the counting), and keeps a
+    copy of the inputs of each kernel's largest call."""
+
+    SITES = {  # kernel -> (module path, attribute, size of a call's inputs)
+        "dram_timing": ("repro_torch.core.engine", "dram_timing_batch",
+                        lambda bank, *a, **k: bank.numel()),
+        "edge_update": ("repro_torch.kernels.edge_update.ops", "edge_update",
+                        lambda src, *a, **k: src.numel()),
+        "spmv": ("repro_torch.kernels.spmv.ops", "spmv_ell",
+                 lambda idx, *a, **k: idx.numel()),
+    }
+
+    def __init__(self):
+        self.events: list = []
+        self.largest: dict = {}
+        self._saved: list = []
+
+    def __enter__(self):
+        import importlib
+
+        import torch
+
+        for name, (mod, attr, size_of) in self.SITES.items():
+            module = importlib.import_module(mod)
+            fn = getattr(module, attr)
+            self._saved.append((module, attr, fn))
+
+            def timed(*args, _name=name, _fn=fn, _size=size_of, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _fn(*args, **kw)
+                end.record()
+                self.events.append((_name, start, end))
+                size = _size(*args)
+                if _name != "dram_timing" and size > self.largest.get(_name, (-1,))[0]:
+                    self.largest[_name] = (size, [a.clone() for a in args])
+                return out
+
+            setattr(module, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in self._saved:
+            setattr(module, attr, fn)
+
+    def kernel_ms(self) -> dict:
+        out = {name: 0.0 for name in self.SITES}
+        for name, start, end in self.events:
+            out[name] += start.elapsed_time(end)
+        return out
+
+
+def phase_main_device(graphs: dict) -> tuple[list[dict], dict]:
+    """All 16 device pairs on lj through ``run_accelerator(...,
+    AccelConfig(semexec="device"), device=None)``, held against the numpy
+    engine on the same card and against the goldens; the launch counts are
+    zeroed just before and read just after."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.graphsim import default_config
+    from repro_torch.core import hostcache
+    from repro_torch.core.accelerators import ACCELERATORS, run_accelerator
+    from repro_torch.core.trace import trace_stream_hash
+    from repro_torch.graph.problems import PROBLEMS
+    from repro_torch.kernels import _platform
+
+    golden = {s["key"]: s for s in json.loads(GOLDEN.read_text())["scenarios"]}
+    g, root = graphs["lj"], graph_spec("lj").root
+    pairs = device_pairs()
+    check(len(pairs) == 16, f"expected 16 device pairs, found {len(pairs)}")
+
+    def config(accel: str, engine: str):
+        return dataclasses.replace(default_config(accel), semexec=engine)
+
+    def trace_hash(accel: str, prob: str, engine: str) -> str:
+        # the semantic half again: a host-cache hit, no launch
+        pending = ACCELERATORS[accel](config(accel, engine)).prepare(
+            g, PROBLEMS[prob], root=root, device="cuda")
+        return trace_stream_hash(pending.traces())[:16]
+
+    # the numpy engine on the same card: what every device pair must equal
+    t0 = time.perf_counter()
+    ref = {}
+    for accel, prob in pairs:
+        rep = run_accelerator(accel, g, PROBLEMS[prob], root, None, config(accel, "numpy"))
+        check(rep.layout["engine"] == "numpy", f"{accel}/{prob}: numpy run used {rep.layout['engine']}")
+        ref[(accel, prob)] = (rep, trace_hash(accel, prob, "numpy"))
+    numpy_s = time.perf_counter() - t0
+
+    hostcache.clear_all()  # the device path pays its own semantic half
+    rows = []
+    _platform.reset_launches()
+    t_phase = time.perf_counter()
+    with KernelRecorder() as rec:
+        for accel, prob in pairs:
+            rec.events.clear()
+            t0 = time.perf_counter()
+            rep = run_accelerator(accel, g, PROBLEMS[prob], root, None,
+                                  config(accel, "device"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            kms = rec.kernel_ms()
+            label = f"lj/{accel}/{prob}/{ACCELERATORS[accel].default_dram}"
+            want, want_hash = ref[(accel, prob)]
+            thash = trace_hash(accel, prob, "device")
+            check(rep.layout["engine"] == "device", f"{label}: engine {rep.layout['engine']}")
+            check(thash == want_hash, f"{label}: device trace hash {thash} != numpy {want_hash}")
+            check(rep.timing.to_dict() == want.timing.to_dict(),
+                  f"{label}: timing {rep.timing.to_dict()} != numpy {want.timing.to_dict()}")
+            check(rep.iterations == want.iterations,
+                  f"{label}: iterations {rep.iterations} != numpy {want.iterations}")
+            err = float(np.abs(rep.values.astype(np.float64) - want.values).max()
+                        if np.isfinite(want.values).all() else 0.0)
+            if PROBLEMS[prob].kind == "min":
+                check(values_sha256(rep.values) == values_sha256(want.values),
+                      f"{label}: min values are not bit-equal to the numpy engine")
+            else:
+                check(np.allclose(rep.values, want.values, rtol=ACC_RTOL, atol=ACC_ATOL),
+                      f"{label}: acc values not allclose to the numpy engine: {err}")
+            if label in golden:
+                gold = golden[label]
+                check(thash == gold["trace_hash"], f"{label}: trace hash != golden")
+                check(rep.timing.to_dict() == gold["timing"], f"{label}: timing != golden")
+                check(rep.iterations == gold["iterations"], f"{label}: iterations != golden")
+                if prob == "bfs":
+                    check(values_sha256(rep.values) == gold["values_sha256"],
+                          f"{label}: values != golden")
+            kernel_ms = sum(kms.values())
+            rows.append(dict(key=label, wall_s=wall, kernel_ms=kernel_ms,
+                             host_s=wall - kernel_ms / 1e3,
+                             kernel_ms_by_name=kms, iterations=rep.iterations,
+                             golden=label in golden, max_abs_err_vs_numpy=err,
+                             calls={k: sum(1 for e in rec.events if e[0] == k)
+                                    for k in KERNELS}))
+    seconds = time.perf_counter() - t_phase
+    counts = _platform.launch_counts()
+    for name in ("edge_update", "spmv"):
+        check(counts[name] > 0, f"the semexec=device path launched no {name} kernel")
+        check(counts[name] == sum(r["calls"][name] for r in rows),
+              f"{name}: launches {counts[name]} != wrapper calls on the path")
+    emit(dict(phase="main_device", pairs=len(rows), goldens=sum(r["golden"] for r in rows),
+              seconds=round(seconds, 3), numpy_engine_s=round(numpy_s, 3),
+              launches={k: counts[k] for k in KERNELS},
+              wall_s=round(sum(r["wall_s"] for r in rows), 3),
+              host_s=round(sum(r["host_s"] for r in rows), 3),
+              kernel_s=round(sum(r["kernel_ms"] for r in rows) / 1e3, 4)))
+    return rows, dict(counts=counts, largest=rec.largest)
+
+
+def phase_edge_update_timing(args) -> dict:
+    import torch
+
+    from repro_torch.kernels.edge_update import edge_update, edge_update_plain, sentinel_max
+
+    src, dst, delta, values = args
+    ms = cuda_ms(lambda: edge_update(*args), reps=50)
+    plain_ms = cuda_ms(lambda: edge_update_plain(*args), reps=20)
+    got = edge_update(*args)
+    want = edge_update_plain(*args)
+    # the library yardstick: torch's own amin scatter from the same
+    # candidates (computed outside the timed call) into a sentinel base
+    top = sentinel_max(values.dtype)
+    sv = values[src.clamp_min(0).long()]
+    cand = torch.where((src >= 0) & (sv != top), sv + delta, top)
+    index = dst.clamp_min(0).long()
+    base = torch.full_like(values, top)
+    library = lambda: torch.scatter_reduce(base, 0, index, cand, "amin", include_self=True)  # noqa: E731
+    library_ms = cuda_ms(library, reps=50)
+    check(torch.equal(got, want), "edge_update kernel != plain at the largest call")
+    check(torch.equal(library(), got), "edge_update kernel != torch.scatter_reduce")
+    m, n = src.numel(), values.numel()
+    nbytes = 12 * m + 8 * n  # src, dst, delta per edge; values in, acc out
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = m / PEAK_SCALAR_OPS_PER_S * 1e3  # one add per edge
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                library="torch.scatter_reduce(amin)", bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                max_abs_err=0, shape=[m, n], bytes=nbytes)
+
+
+def ell_to_csr(idx, w, ncols: int):
+    """The library yardstick's matrix: the ELL as a torch CSR tensor, built
+    outside any timed call.  An ELL row lists its sources in edge order,
+    with repeats for multi-edges, while torch's CSR wants each row's columns
+    sorted and unique, so the entries go through a coalesced COO tensor
+    (repeats summed) first."""
+    import torch
+
+    live = idx >= 0
+    rows = torch.arange(idx.shape[0], device=idx.device)[:, None].expand_as(idx)[live]
+    coo = torch.sparse_coo_tensor(torch.stack([rows, idx[live].long()]), w[live],
+                                  size=(idx.shape[0], ncols), check_invariants=True)
+    return coo.coalesce().to_sparse_csr()
+
+
+def phase_spmv_timing(args) -> dict:
+    import torch
+
+    from repro_torch.kernels.spmv import spmv_ell, spmv_ell_plain
+
+    idx, w, x = args
+    ms = cuda_ms(lambda: spmv_ell(*args), reps=50)
+    plain_ms = cuda_ms(lambda: spmv_ell_plain(*args), reps=10)
+    got = spmv_ell(*args)
+    want = spmv_ell_plain(*args)
+    csr = ell_to_csr(idx, w, x.shape[0])
+    library = lambda: csr @ x  # noqa: E731
+    library_ms = cuda_ms(library, reps=50)
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=ACC_RTOL, atol=ACC_ATOL),
+          f"spmv kernel != plain at the largest call: {err}")
+    check(torch.allclose(library(), got, rtol=ACC_RTOL, atol=ACC_ATOL),
+          "spmv kernel disagrees with the CSR mat-vec")
+    rows, d = idx.shape
+    nbytes = 8 * rows * d + 4 * x.numel() + 4 * rows  # idx + w per slot; x in, y out
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 2 * rows * d / PEAK_SCALAR_OPS_PER_S * 1e3  # f32 mul + add per slot
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                library="torch.sparse_csr_tensor @ x", bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                max_abs_err=err, bit_equal=bool(torch.equal(got, want)),
+                shape=[rows, d], bytes=nbytes)
+
+
 def main() -> None:
     try:
         import torch
@@ -407,44 +752,68 @@ def main() -> None:
               count=torch.cuda.device_count(), torch=torch.__version__,
               cuda=torch.version.cuda, python=sys.version.split()[0]))
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    lib = _build.build("dram_timing", verbose=True)
-    _build.load("dram_timing")
-    emit(dict(phase="build", kernel="dram_timing", library=str(lib.relative_to(ROOT))
-              if lib.is_relative_to(ROOT) else str(lib),
-              seconds=round(time.perf_counter() - t0, 3)))
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        libs = dict(zip(KERNELS, pool.map(lambda k: _build.build(k, verbose=True), KERNELS)))
+    for name in KERNELS:
+        _build.load(name)
+        lib = libs[name]
+        emit(dict(phase="build", kernel=name, library=str(lib.relative_to(ROOT))
+                  if lib.is_relative_to(ROOT) else str(lib),
+                  seconds=round(time.perf_counter() - t0, 3)))
 
     # graph generation is set-up, not the path
     graphs = {name: graph_spec(name).build() for name in ("lj", "tiny")}
 
-    # 3. kernel vs plain (one case is the real lj/hitgraph/bfs batch)
+    # 3. kernels vs plain (on the real lj batch and layouts among others)
     pending, _ = prepare(dict(graph="lj", accelerator="hitgraph", problem="bfs",
                               dram="hitgraph", mapping="row", page_policy="open",
                               pseudo_channels=False), graphs)
-    worst = phase_kernel_vs_plain(dev, largest_group(pending))
+    worst = {"dram_timing": phase_kernel_vs_plain(dev, largest_group(pending))}
+    lay_min, lay_acc = lj_device_layouts(graphs, dev)
+    worst["edge_update"] = phase_edge_update_vs_plain(dev, graphs, lay_min)
+    worst["spmv"] = phase_spmv_vs_plain(dev, lay_acc, graphs["lj"].n)
+    del lay_min, lay_acc
 
-    # 4. main path
+    # 4. main path (numpy semantics)
     rows, info = phase_main(graphs)
 
-    # 5. kernel timing at the main path's largest bucket
-    timing = phase_kernel_timing(dev, info["batch"])
-    emit(dict(phase="kernel_timing", kernel="dram_timing", **timing))
+    # 5. the semexec="device" path
+    device_rows, device_info = phase_main_device(graphs)
+
+    # 6. kernel timing at each path's largest call
+    timing = {"dram_timing": phase_kernel_timing(dev, info["batch"]),
+              "edge_update": phase_edge_update_timing(
+                  device_info["largest"]["edge_update"][1]),
+              "spmv": phase_spmv_timing(device_info["largest"]["spmv"][1])}
+    launches = {"dram_timing": info["counts"]["dram_timing"],
+                "edge_update": device_info["counts"]["edge_update"],
+                "spmv": device_info["counts"]["spmv"]}
+    for name in KERNELS:
+        emit(dict(phase="kernel_timing", kernel=name, launches=launches[name],
+                  **timing[name]))
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        dict(card=smi, scenarios=rows, kernel_timing=timing), indent=1) + "\n")
+        dict(card=smi, scenarios=rows, device_pairs=device_rows,
+             kernel_timing=timing), indent=1) + "\n")
 
+    replaces = {"dram_timing": "src/repro/kernels/dram_timing/dram_timing.py:120",
+                "edge_update": "src/repro/kernels/edge_update/edge_update.py:53",
+                "spmv": "src/repro/kernels/spmv/spmv.py:36"}
     emit(dict(kernels=[dict(
-        name="dram_timing", route="cuda", source="src/repro_torch/csrc/dram_timing.cu",
-        replaces="src/repro/kernels/dram_timing/dram_timing.py:120",
-        launches=info["counts"]["dram_timing"],
-        max_abs_err=max(worst, timing["max_abs_err"]),
-        ms=timing["ms"], plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
-        bound_by=timing["bound_by"], library_ms=None, shape=timing["shape"],
-        card=smi)]))
+        name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
+        replaces=replaces[name], launches=launches[name],
+        max_abs_err=max(worst[name], timing[name]["max_abs_err"]),
+        ms=timing[name]["ms"], plain_ms=timing[name]["plain_ms"],
+        bound_ms=timing[name]["bound_ms"], bound_by=timing[name]["bound_by"],
+        library_ms=timing[name].get("library_ms"), shape=timing[name]["shape"],
+        card=smi) for name in KERNELS]))
     print(smi, flush=True)
     emit(dict(ok=True, device=dict(platform="gpu", kind=kind,
                                    count=torch.cuda.device_count())))

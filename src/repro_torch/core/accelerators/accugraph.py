@@ -28,7 +28,9 @@ source-interval values changed since it was last processed.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from repro_torch.core import semexec
 from repro_torch.core.accelerators.base import (
     Accelerator,
     INF,
@@ -67,7 +69,7 @@ class AccuGraph(Accelerator):
         return g.src[idx], dst, ud, inv
 
     def _execute(self, g: Graph, problem: Problem, root: int,
-                 init=None, engine="numpy"):
+                 init=None, engine="numpy", device=None):
         cfg = self.config
         ivl = cfg.effective_interval
         parts = horizontal_partition(g, ivl, by="src")
@@ -100,6 +102,11 @@ class AccuGraph(Accelerator):
         onchip_partition = -1  # which interval currently resides in BRAM
         skip_part = cfg.has("partition_skipping") and problem.kind == "min"
         skip_pref = cfg.has("prefetch_skipping")
+        on_device = engine == "device"
+        if on_device:
+            dev = semexec.AccuGraphDevice(g, problem, part_edges, k, ivl,
+                                          device)
+            values_dev = torch.tensor(values, device=device)
         iters = 0
 
         if problem.kind == "acc":
@@ -111,8 +118,13 @@ class AccuGraph(Accelerator):
             iter_trace: list[Trace] = []
             any_change = False
             if problem.kind == "acc":
-                snapshot = values.copy()
-                values = np.full(g.n, base_const, dtype=np.float32)
+                if on_device:
+                    snapshot_dev = values_dev
+                    values_dev = torch.full((g.n,), base_const, dtype=torch.float32,
+                                           device=device)
+                else:
+                    snapshot = values.copy()
+                    values = np.full(g.n, base_const, dtype=np.float32)
 
             for p in range(k):
                 if skip_part and not dirty[p]:
@@ -124,7 +136,22 @@ class AccuGraph(Accelerator):
 
                 # --- semantics (accumulation over the partition's unique
                 # destinations only; equivalent to the full-|V| scatter) ---
-                if problem.kind == "min":
+                # Gauss-Seidel needs a host sync per partition either way:
+                # the next partition's skip decision reads ``dirty`` bits
+                # this partition may set.  The device path keeps values on
+                # the device and replaces np.minimum.at with one segment
+                # reduction there.
+                if on_device:
+                    if problem.kind == "min":
+                        values_dev, ch_mask = dev.min_step(values_dev, p)
+                        wchanged = dev.ud_host(p)[ch_mask]
+                        if len(wchanged):
+                            any_change = True
+                            dirty[np.unique(wchanged // ivl)] = True
+                    else:
+                        values_dev = dev.acc_step(values_dev, snapshot_dev, p)
+                        wchanged = dev.ud_host(p)
+                elif problem.kind == "min":
                     cand = problem.edge_candidates_np(values[src])
                     acc = np.full(len(ud), INF, dtype=np.float32)
                     np.minimum.at(acc, inv, cand)
@@ -174,4 +201,6 @@ class AccuGraph(Accelerator):
             if problem.kind == "min" and (not any_change or (skip_part and not dirty.any())):
                 break
 
+        if on_device:
+            values = values_dev.cpu().numpy()
         return values, iters, pt, stats, extras

@@ -1,9 +1,11 @@
 """Shared machinery for accelerator models.
 
-Semantic execution runs host-side in numpy (this mirrors the paper's C++
-simulation environment: trace generation is itself an offline preprocessing
-step), while DRAM timing runs through the CUDA timing kernel on the card
-(its plain PyTorch version on the CPU).
+Semantic execution runs host-side in numpy by default (this mirrors the
+paper's C++ simulation environment: trace generation is itself an offline
+preprocessing step) or, with ``AccelConfig(semexec="device")``, as PyTorch
+steps on the device (``repro_torch.core.semexec``), while DRAM timing runs
+through the CUDA timing kernel on the card (its plain PyTorch version on
+the CPU).
 
 Timing is batched: ``simulate_phased`` collects every (phase, channel)
 trace, dispatches them through :func:`repro_torch.core.engine.simulate_batch` in
@@ -19,6 +21,7 @@ import abc
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.dram import DRAMConfig, dram_config
 from repro_torch.core.engine import (
@@ -60,10 +63,11 @@ class AccelConfig:
     interval_scale: power-of-two multiplier on ``interval_size`` (the
       partition-granularity sweep axis; ``effective_interval`` is the
       product the partitioners actually see).
-    semexec: semantic execution engine — where the per-iteration graph
-      semantics run (repro_torch.core.semexec).  Only "numpy" is available
-      here; "device" raises NotImplementedError.  The resolved engine is
-      recorded in the run layout.
+    semexec: semantic execution engine ("numpy" | "device") — where the
+      per-iteration graph semantics run (repro_torch.core.semexec).
+      "device" runs them on the entry point's device and falls back to
+      numpy (with a warning) for pairs without a device formulation; the
+      resolved engine is recorded in the run layout.
     """
 
     interval_size: int = 16384
@@ -94,7 +98,8 @@ class AccelConfig:
     # cache, so a new semantics-relevant knob can never alias stale entries.
     _TIMING_ONLY_FIELDS = ("engine", "scan_cutoff")
     # Fields resolved per (accelerator, problem) before execution; prepare
-    # appends the RESOLVED value to the semantic cache key instead.
+    # appends the RESOLVED value to the semantic cache key instead, so a
+    # requested "device" that falls back to numpy shares the numpy entry.
     _RESOLVED_FIELDS = ("semexec",)
 
     def semantic_key(self) -> tuple:
@@ -282,13 +287,15 @@ class Accelerator(abc.ABC):
     def _execute(
         self, g: Graph, problem: Problem, root: int,
         init: np.ndarray | None = None, engine: str = "numpy",
+        device: torch.device | None = None,
     ) -> tuple[np.ndarray, int, PhasedTrace, list[IterationStats], dict]:
         """``init`` overrides ``problem.init_values`` — the layout layer
         passes the original-space initial values carried through the vertex
         relabeling, so per-vertex payloads (SpMV's x vector, WCC's id
         labels) follow their vertices instead of their slots.  ``engine``
         is the RESOLVED semantic engine ("numpy" | "device") — callers go
-        through ``prepare``, which resolves ``config.semexec``."""
+        through ``prepare``, which resolves ``config.semexec`` — and
+        ``device`` the resolved device the ``device`` engine runs on."""
         ...
 
     def prepare(
@@ -297,6 +304,7 @@ class Accelerator(abc.ABC):
         problem: Problem,
         root: int = 0,
         dram: DRAMConfig | str | None = None,
+        device=None,
     ) -> PendingRun:
         """Run the semantic half (trace assembly) only; the returned
         :class:`PendingRun` carries everything ``finalize`` needs once the
@@ -313,7 +321,13 @@ class Accelerator(abc.ABC):
         maps the final values back to original ids afterwards, so callers
         compare against ``reference_solve`` unchanged.  The relabeled graph
         carries its own content fingerprint, so reordered partition indices
-        and semantic executions cache independently of the identity layout."""
+        and semantic executions cache independently of the identity layout.
+
+        ``device`` is read only when the resolved engine is ``device``
+        (``None``: the CUDA card, raising when there is none), so the numpy
+        engine needs no card.  Its device joins the semantic cache key: a
+        CUDA run never reuses a CPU execution, and acc values, which agree
+        across devices only to tolerance, never alias."""
         if problem.needs_weights and not self.supports_weights:
             raise ValueError(f"{self.name} does not support weighted problems")
         if isinstance(dram, str):
@@ -330,6 +344,7 @@ class Accelerator(abc.ABC):
             root_x = int(perm[root])
         engine = semexec.resolve_engine(self.name, problem.name,
                                         self.config.semexec)
+        dev = resolve_device(device) if engine == "device" else None
 
         def execute():
             # per-vertex initial payloads (SpMV's x, WCC's labels) must
@@ -338,11 +353,12 @@ class Accelerator(abc.ABC):
             init = None
             if perm is not None:
                 init = relabel_values(problem.init_values(gp, root), perm)
-            return self._execute(gx, problem, root_x, init, engine)
+            return self._execute(gx, problem, root_x, init, engine, dev)
 
         values, iters, pt, stats, extras = SEMANTICS.get_or_build(
             (gx.fingerprint, self.name, problem.name, root_x,
-             self.config.semantic_key(), engine),
+             self.config.semantic_key(), engine)
+            + ((str(dev),) if dev is not None else ()),
             execute,
         )
         # hand out copies of the mutable pieces: a caller mutating
@@ -387,7 +403,8 @@ class Accelerator(abc.ABC):
         device=None,
     ) -> SimReport:
         dev = resolve_device(device)  # raise before the semantic half runs
-        return self.prepare(g, problem, root=root, dram=dram).finalize(device=dev)
+        return self.prepare(g, problem, root=root, dram=dram,
+                            device=dev).finalize(device=dev)
 
 
 def run_accelerator(
@@ -399,8 +416,9 @@ def run_accelerator(
     config: AccelConfig | None = None,
     device=None,
 ) -> SimReport:
-    """One scenario in, one SimReport out, timed on ``device`` (``None``:
-    the CUDA card, raising when there is none)."""
+    """One scenario in, one SimReport out, on ``device`` (``None``: the
+    CUDA card, raising when there is none): DRAM timing, and the semantics
+    too under ``semexec="device"``."""
     from repro_torch.core.accelerators import ACCELERATORS
 
     cls = ACCELERATORS[name]

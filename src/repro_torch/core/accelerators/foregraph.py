@@ -25,7 +25,9 @@ from __future__ import annotations
 import warnings
 
 import numpy as np
+import torch
 
+from repro_torch.core import semexec
 from repro_torch.core.accelerators.base import (
     Accelerator,
     INF,
@@ -69,7 +71,7 @@ class ForeGraph(Accelerator):
                 f"{self.config.effective_interval}")
 
     def _execute(self, g: Graph, problem: Problem, root: int,
-                 init=None, engine="numpy"):
+                 init=None, engine="numpy", device=None):
         cfg = self.config
         n_pes = max(cfg.n_pes, 1)
         interval = cfg.effective_interval
@@ -134,6 +136,11 @@ class ForeGraph(Accelerator):
         shuffle = cfg.has("edge_shuffling") and n_pes > 1
         skip = cfg.has("shard_skipping") and problem.kind == "min"
         dirty = np.ones(q, dtype=bool)
+        on_device = engine == "device"
+        if on_device:
+            dev = semexec.ForeGraphDevice(g, problem, sizes, shard_edges,
+                                          interval, q, device)
+            values_dev = torch.tensor(values, device=device)
         pt = PhasedTrace()
         stats: list[IterationStats] = []
         iters = 0
@@ -146,14 +153,28 @@ class ForeGraph(Accelerator):
             any_change = False
             pe_traces: list[list[Trace]] = [[] for _ in range(n_pes)]
             if problem.kind == "acc":
-                snapshot = values.copy()
-                values = np.full(g.n, base_const, dtype=np.float32)
+                if on_device:
+                    # every shard reads the pre-iteration snapshot: the
+                    # whole accumulation is one SpMV on the device
+                    values_dev = dev.acc_step(values_dev)
+                else:
+                    snapshot = values.copy()
+                    values = np.full(g.n, base_const, dtype=np.float32)
 
             for i in range(q):
                 if skip and not dirty[i]:
                     st.partitions_skipped += q
                     continue
                 dirty[i] = False
+                if on_device and problem.kind == "min":
+                    # one device step per source interval (three
+                    # sequential sub-scatters reproduce the shard-order
+                    # Gauss-Seidel); later intervals' skip decisions need
+                    # this interval's dirty flags, hence the host sync here
+                    values_dev, flags = dev.min_step(values_dev, i)
+                    if flags.any():
+                        any_change = True
+                        dirty |= flags
                 pe = i % n_pes
                 lo_i, hi_i = shards.interval(i)
                 pe_traces[pe].append(
@@ -174,31 +195,32 @@ class ForeGraph(Accelerator):
                     pad = max(int(sizes[i, j]) for j in group) if shuffle else 0
                     for j in group:
                         lo_j, hi_j = shards.interval(j)
-                        src, dst = shard_edges[(i, j)]
-                        # --- semantics (immediate across shards; the
-                        # shard only updates destination interval j, so
-                        # the accumulation scratch is interval-local) ---
-                        sv = (snapshot if problem.kind == "acc" else values)[src]
-                        if problem.kind == "min":
-                            cand = problem.edge_candidates_np(sv)
-                            acc = np.full(hi_j - lo_j, INF, dtype=np.float32)
-                            np.minimum.at(acc, dst - lo_j, cand)
-                            old = values[lo_j:hi_j]
-                            nv = np.minimum(old, acc)
-                            changed = (nv < old).nonzero()[0] + lo_j
-                            values[lo_j:hi_j] = nv
-                            if len(changed):
-                                any_change = True
-                                dirty[np.unique(changed // interval)] = True
-                        else:
-                            cand = problem.edge_candidates_np(
-                                sv, None,
-                                src_deg[src] if src_deg is not None else None,
-                            )
-                            acc = np.zeros(hi_j - lo_j, dtype=np.float32)
-                            np.add.at(acc, dst - lo_j, cand)
-                            scale = 0.85 if problem.name == "pr" else 1.0
-                            values[lo_j:hi_j] += np.float32(scale) * acc
+                        if not on_device:
+                            src, dst = shard_edges[(i, j)]
+                            # --- semantics (immediate across shards; the
+                            # shard only updates destination interval j, so
+                            # the accumulation scratch is interval-local) ---
+                            sv = (snapshot if problem.kind == "acc" else values)[src]
+                            if problem.kind == "min":
+                                cand = problem.edge_candidates_np(sv)
+                                acc = np.full(hi_j - lo_j, INF, dtype=np.float32)
+                                np.minimum.at(acc, dst - lo_j, cand)
+                                old = values[lo_j:hi_j]
+                                nv = np.minimum(old, acc)
+                                changed = (nv < old).nonzero()[0] + lo_j
+                                values[lo_j:hi_j] = nv
+                                if len(changed):
+                                    any_change = True
+                                    dirty[np.unique(changed // interval)] = True
+                            else:
+                                cand = problem.edge_candidates_np(
+                                    sv, None,
+                                    src_deg[src] if src_deg is not None else None,
+                                )
+                                acc = np.zeros(hi_j - lo_j, dtype=np.float32)
+                                np.add.at(acc, dst - lo_j, cand)
+                                scale = 0.85 if problem.name == "pr" else 1.0
+                                values[lo_j:hi_j] += np.float32(scale) * acc
 
                         # --- trace (all sequential) ---
                         n_edges = pad if shuffle else int(sizes[i, j])
@@ -224,6 +246,8 @@ class ForeGraph(Accelerator):
             if problem.kind == "min" and (not any_change or (skip and not dirty.any())):
                 break
 
+        if on_device:
+            values = values_dev.cpu().numpy()
         if sperm is not None:
             # values are indexed by stride-renamed ids; map back to the
             # pre-stride ids (WCC labels re-canonicalised to min id)

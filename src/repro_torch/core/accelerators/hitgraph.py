@@ -26,7 +26,9 @@ update).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from repro_torch.core import semexec
 from repro_torch.core.accelerators.base import (
     Accelerator,
     INF,
@@ -70,7 +72,7 @@ class HitGraph(Accelerator):
         return dict(n_edges=len(idx), src=src, dst=dst, w=w, route=route, jb=jb)
 
     def _execute(self, g: Graph, problem: Problem, root: int,
-                 init=None, engine="numpy"):
+                 init=None, engine="numpy", device=None):
         cfg = self.config
         p = max(cfg.n_pes, 1)  # PEs == channels
         ivl = cfg.effective_interval
@@ -109,6 +111,12 @@ class HitGraph(Accelerator):
         src_deg = g.degrees_out.astype(np.float32) if problem.name == "pr" else None
         active = np.ones(g.n, dtype=bool)  # bitmap: changed last iteration
         dirty = np.ones(k, dtype=bool)
+        on_device = engine == "device"
+        if on_device:
+            dev = semexec.HitGraphDevice(
+                g, problem, prep, parts, k, ivl, sort_opt, weighted,
+                filter_opt, skip_opt, combine_opt, device)
+            values_dev = torch.tensor(values, device=device)
         pt = PhasedTrace()
         stats: list[IterationStats] = []
         iters = 0
@@ -117,6 +125,17 @@ class HitGraph(Accelerator):
             iters += 1
             st = IterationStats(partitions_total=k)
             # ---------------- scatter ----------------
+            if on_device:
+                # one device step per iteration: masked scatter-min plus
+                # the per-destination-partition update counts; the changed
+                # bitmap and counts are the only device->host traffic
+                if problem.kind == "min":
+                    proc = dirty.copy() if skip_opt else np.ones(k, dtype=bool)
+                    values_dev, changed_global, nupd_arr = dev.min_step(
+                        values_dev, active, proc)
+                else:
+                    values_dev = dev.acc_step(values_dev)
+                    nupd_arr = dev.nupd_static()
             scatter_traces: list[list[Trace]] = [[] for _ in range(p)]
             # update buffers per destination partition: (dst, value)
             upd_dst: list[list[np.ndarray]] = [[] for _ in range(k)]
@@ -131,47 +150,48 @@ class HitGraph(Accelerator):
                 src, dst, w = pi["src"], pi["dst"], pi["w"]
                 lo, hi = parts.interval(i)
 
-                # Crossbar routing: the static stable grouping by
-                # destination interval (``route``/``jb``) is precomputed;
-                # with filtering only the kept-edge mask is applied per
-                # iteration (order within each interval is preserved, so
-                # the routed streams equal a fresh per-iteration sort).
-                if filter_opt:
-                    keep = active[src]
-                    mask_sorted = keep[pi["route"]]
-                    routed = pi["route"][mask_sorted]
-                    csum = np.concatenate(
-                        ([0], np.cumsum(mask_sorted, dtype=np.int64)))
-                    jb = csum[pi["jb"]]
-                else:
-                    routed, jb = pi["route"], pi["jb"]
+                if not on_device:
+                    # Crossbar routing: the static stable grouping by
+                    # destination interval (``route``/``jb``) is precomputed;
+                    # with filtering only the kept-edge mask is applied per
+                    # iteration (order within each interval is preserved, so
+                    # the routed streams equal a fresh per-iteration sort).
+                    if filter_opt:
+                        keep = active[src]
+                        mask_sorted = keep[pi["route"]]
+                        routed = pi["route"][mask_sorted]
+                        csum = np.concatenate(
+                            ([0], np.cumsum(mask_sorted, dtype=np.int64)))
+                        jb = csum[pi["jb"]]
+                    else:
+                        routed, jb = pi["route"], pi["jb"]
 
-                src_r, dst_r = src[routed], dst[routed]
-                w_r = w[routed] if w is not None else None
-                cand = problem.edge_candidates_np(
-                    values[src_r], w_r,
-                    src_deg[src_r] if src_deg is not None else None)
-                # route updates to destination partitions
-                for j in range(k):
-                    b0, b1 = jb[j], jb[j + 1]
-                    if b0 == b1:
-                        continue
-                    d, v = dst_r[b0:b1], cand[b0:b1]
-                    if combine_opt:
-                        # combine updates with equal destination
-                        # (interval-local scratch: partition j's updates
-                        # only touch its own vertex interval)
-                        jlo, jhi = parts.interval(j)
-                        if problem.kind == "min":
-                            acc = np.full(jhi - jlo, INF, dtype=np.float32)
-                            np.minimum.at(acc, d - jlo, v)
-                        else:
-                            acc = np.zeros(jhi - jlo, dtype=np.float32)
-                            np.add.at(acc, d - jlo, v)
-                        d = np.unique(d)
-                        v = acc[d - jlo]
-                    upd_dst[j].append(d)
-                    upd_val[j].append(v)
+                    src_r, dst_r = src[routed], dst[routed]
+                    w_r = w[routed] if w is not None else None
+                    cand = problem.edge_candidates_np(
+                        values[src_r], w_r,
+                        src_deg[src_r] if src_deg is not None else None)
+                    # route updates to destination partitions
+                    for j in range(k):
+                        b0, b1 = jb[j], jb[j + 1]
+                        if b0 == b1:
+                            continue
+                        d, v = dst_r[b0:b1], cand[b0:b1]
+                        if combine_opt:
+                            # combine updates with equal destination
+                            # (interval-local scratch: partition j's updates
+                            # only touch its own vertex interval)
+                            jlo, jhi = parts.interval(j)
+                            if problem.kind == "min":
+                                acc = np.full(jhi - jlo, INF, dtype=np.float32)
+                                np.minimum.at(acc, d - jlo, v)
+                            else:
+                                acc = np.zeros(jhi - jlo, dtype=np.float32)
+                                np.add.at(acc, d - jlo, v)
+                            d = np.unique(d)
+                            v = acc[d - jlo]
+                        upd_dst[j].append(d)
+                        upd_val[j].append(v)
 
                 # trace: prefetch -> edges -> update writes (concurrent)
                 pre = seq_read(layouts[ch].base(f"vals{i}"), (hi - lo) * 4)
@@ -180,9 +200,10 @@ class HitGraph(Accelerator):
                 st.edges_read += pi["n_edges"]
                 scatter_traces[ch].append(concat(pre, edges_tr))
 
-            nupd_arr = np.array(
-                [sum(len(a) for a in upd_dst[j]) for j in range(k)],
-                dtype=np.int64)
+            if not on_device:
+                nupd_arr = np.array(
+                    [sum(len(a) for a in upd_dst[j]) for j in range(k)],
+                    dtype=np.int64)
             # update-queue writes happen on the owning channel, sequential
             upd_write_traces: list[list[Trace]] = [[] for _ in range(p)]
             for j in range(k):
@@ -200,12 +221,13 @@ class HitGraph(Accelerator):
             pt.add_phase(scatter_phase)
 
             # ---------------- gather ----------------
-            if problem.kind == "acc":
-                base_const = (1.0 - 0.85) / g.n if problem.name == "pr" else 0.0
-                new_values = np.full(g.n, base_const, dtype=np.float32)
-            else:
-                new_values = values.copy()
-            changed_global = np.zeros(g.n, dtype=bool)
+            if not on_device:
+                if problem.kind == "acc":
+                    base_const = (1.0 - 0.85) / g.n if problem.name == "pr" else 0.0
+                    new_values = np.full(g.n, base_const, dtype=np.float32)
+                else:
+                    new_values = values.copy()
+                changed_global = np.zeros(g.n, dtype=bool)
             any_change = False
             gtr: list[list[Trace]] = [[] for _ in range(p)]
             for j in range(k):
@@ -214,23 +236,35 @@ class HitGraph(Accelerator):
                 ch = j % p
                 lo, hi = parts.interval(j)
                 st.updates_read += int(nupd_arr[j])
-                d = np.concatenate(upd_dst[j])
-                v = np.concatenate(upd_val[j])
-                if problem.kind == "min":
-                    # interval-local apply: partition j's updates only
-                    # touch vertices in [lo, hi)
-                    acc = np.full(hi - lo, INF, dtype=np.float32)
-                    np.minimum.at(acc, d - lo, v)
-                    old = new_values[lo:hi]
-                    nv = np.minimum(old, acc)
-                    changed = (nv < old).nonzero()[0] + lo
-                    new_values[lo:hi] = nv
-                    changed_global[changed] = True
-                    if len(changed):
-                        any_change = True
+                if on_device:
+                    # semantics already applied on-device; recover the
+                    # written set from the changed bitmap ("min": vertices
+                    # an update lowered, restricted to interval j by
+                    # construction) or the static destination sets ("acc")
+                    if problem.kind == "min":
+                        changed = changed_global[lo:hi].nonzero()[0] + lo
+                        if len(changed):
+                            any_change = True
+                    else:
+                        changed = dev.changed_static(j)
                 else:
-                    np.add.at(new_values, d, v if problem.name != "pr" else np.float32(0.85) * v)
-                    changed = np.unique(d)
+                    d = np.concatenate(upd_dst[j])
+                    v = np.concatenate(upd_val[j])
+                    if problem.kind == "min":
+                        # interval-local apply: partition j's updates only
+                        # touch vertices in [lo, hi)
+                        acc = np.full(hi - lo, INF, dtype=np.float32)
+                        np.minimum.at(acc, d - lo, v)
+                        old = new_values[lo:hi]
+                        nv = np.minimum(old, acc)
+                        changed = (nv < old).nonzero()[0] + lo
+                        new_values[lo:hi] = nv
+                        changed_global[changed] = True
+                        if len(changed):
+                            any_change = True
+                    else:
+                        np.add.at(new_values, d, v if problem.name != "pr" else np.float32(0.85) * v)
+                        changed = np.unique(d)
 
                 pre = seq_read(layouts[ch].base(f"vals{j}"), (hi - lo) * 4)
                 upd_rd = seq_read(layouts[ch].base(f"upd{j}"), int(nupd_arr[j]) * 8)
@@ -245,16 +279,20 @@ class HitGraph(Accelerator):
             pt.add_phase(gather_phase)
 
             if problem.kind == "acc":
-                values = new_values  # damping applied per-update above
+                if not on_device:
+                    values = new_values  # damping applied per-update above
                 stats.append(st)
                 break  # single iteration
             dirty = np.zeros(k, dtype=bool)
             ch_parts = np.unique(changed_global.nonzero()[0] // ivl)
             dirty[ch_parts] = True
             active = changed_global
-            values = new_values
+            if not on_device:
+                values = new_values
             stats.append(st)
             if not any_change:
                 break
 
+        if on_device:
+            values = values_dev.cpu().numpy()
         return values, iters, pt, stats, extras

@@ -23,7 +23,9 @@ as in the paper.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from repro_torch.core import semexec
 from repro_torch.core.accelerators.base import (
     Accelerator,
     INF,
@@ -53,7 +55,7 @@ class ThunderGP(Accelerator):
     supports_multichannel = True
 
     def _execute(self, g: Graph, problem: Problem, root: int,
-                 init=None, engine="numpy"):
+                 init=None, engine="numpy", device=None):
         cfg = self.config
         p = max(cfg.n_pes, 1)  # channels
         ivl = cfg.effective_interval
@@ -136,13 +138,27 @@ class ThunderGP(Accelerator):
             apply_static.append(ap_row)
         pt = PhasedTrace()
         stats: list[IterationStats] = []
+        on_device = engine == "device"
+        if on_device:
+            dev = semexec.ThunderGPDevice(g, problem, prep, k, p, ivl,
+                                          weighted, device)
+            values_dev = torch.tensor(values, device=device)
         iters = 0
 
         for _ in range(cfg.max_iters):
             iters += 1
             st = IterationStats(partitions_total=k)
             any_change = False
-            if problem.kind == "acc":
+            if on_device:
+                # ThunderGP's iteration is synchronous (Jacobi) with
+                # disjoint destination intervals, so the whole iteration —
+                # every partition's chunk partials plus the apply combine —
+                # is ONE device step (one scatter-min) before the trace loop.
+                if problem.kind == "min":
+                    values_dev, any_change = dev.min_step(values_dev)
+                else:
+                    values_dev = dev.acc_step(values_dev)
+            elif problem.kind == "acc":
                 base_const = (1.0 - 0.85) / g.n if problem.name == "pr" else 0.0
                 new_values = np.full(g.n, base_const, dtype=np.float32)
             else:
@@ -158,20 +174,21 @@ class ThunderGP(Accelerator):
                     pc = prep[i][c]
                     ch = chunk_of[i][c]
 
-                    # semantics: chunk partial accumulation over dst
-                    # interval
-                    src, dst, w = pc["src"], pc["dst"], pc["w"]
-                    cand = problem.edge_candidates_np(
-                        values[src], w,
-                        src_deg[src] if src_deg is not None else None,
-                    )
-                    if problem.kind == "min":
-                        acc = np.full(ni, INF, dtype=np.float32)
-                        np.minimum.at(acc, dst - lo, cand)
-                    else:
-                        acc = np.zeros(ni, dtype=np.float32)
-                        np.add.at(acc, dst - lo, cand)
-                    partials.append(acc)
+                    if not on_device:
+                        # semantics: chunk partial accumulation over dst
+                        # interval
+                        src, dst, w = pc["src"], pc["dst"], pc["w"]
+                        cand = problem.edge_candidates_np(
+                            values[src], w,
+                            src_deg[src] if src_deg is not None else None,
+                        )
+                        if problem.kind == "min":
+                            acc = np.full(ni, INF, dtype=np.float32)
+                            np.minimum.at(acc, dst - lo, cand)
+                        else:
+                            acc = np.zeros(ni, dtype=np.float32)
+                            np.add.at(acc, dst - lo, cand)
+                        partials.append(acc)
 
                     # trace: prefetch dst values; edges; semi-sequential
                     # source value loads (sorted by src, duplicates filtered
@@ -184,17 +201,18 @@ class ThunderGP(Accelerator):
                 pt.add_phase(sg_phase)
 
                 # ---- apply (combine chunk partials, write to all copies) ----
-                if problem.kind == "min":
-                    comb = np.minimum.reduce(partials) if partials else np.full(ni, INF)
-                    nv = np.minimum(new_values[lo:hi], comb)
-                    changed = nv < new_values[lo:hi]
-                    new_values[lo:hi] = nv
-                    if changed.any():
-                        any_change = True
-                else:
-                    comb = np.sum(partials, axis=0)
-                    scale = 0.85 if problem.name == "pr" else 1.0
-                    new_values[lo:hi] += np.float32(scale) * comb
+                if not on_device:
+                    if problem.kind == "min":
+                        comb = np.minimum.reduce(partials) if partials else np.full(ni, INF)
+                        nv = np.minimum(new_values[lo:hi], comb)
+                        changed = nv < new_values[lo:hi]
+                        new_values[lo:hi] = nv
+                        if changed.any():
+                            any_change = True
+                    else:
+                        comb = np.sum(partials, axis=0)
+                        scale = 0.85 if problem.name == "pr" else 1.0
+                        new_values[lo:hi] += np.float32(scale) * comb
 
                 apply_phase: list[Trace] = []
                 for c in range(p):
@@ -203,11 +221,14 @@ class ThunderGP(Accelerator):
                     apply_phase.append(apply_static[i][c])
                 pt.add_phase(apply_phase)
 
-            values = new_values
+            if not on_device:
+                values = new_values
             stats.append(st)
             if problem.single_iteration:
                 break
             if problem.kind == "min" and not any_change:
                 break
 
+        if on_device:
+            values = values_dev.cpu().numpy()
         return values, iters, pt, stats, extras

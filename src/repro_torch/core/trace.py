@@ -43,8 +43,10 @@ import dataclasses
 import hashlib
 
 import numpy as np
+import torch
 
 from repro_torch.core.dram import decode_lines
+from repro_torch.kernels._platform import resolve_device
 
 LINE = 64
 
@@ -584,3 +586,68 @@ def trace_stream_hash(traces) -> str:
         h.update(m.lines.tobytes())
         h.update(m.is_write.tobytes())
     return h.hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# device-side decode (the semexec boundary's trace half)
+# ---------------------------------------------------------------------------
+
+
+def decode_lines_device(lines: torch.Tensor, mask: torch.Tensor, cfg):
+    """Torch twin of :func:`repro_torch.core.dram.decode_lines`: int64 line
+    -> int32 (bank, row) under ``cfg.mapping``, in integer ops on the
+    tensors' device, over any shape.  ``mask`` marks real requests; padding
+    decodes to the engines' no-op convention (bank -1, row 0).  Lines are
+    non-negative, so torch's floor division and remainder equal numpy's and
+    the result is bit-equal to the numpy decode."""
+    lpr = cfg.lines_per_row
+    nb = cfg.nbanks
+    scheme = cfg.mapping.scheme
+    if scheme == "bank_xor" and nb & (nb - 1):
+        raise ValueError(
+            f"bank_xor mapping requires a power-of-two bank count, "
+            f"got {nb} ({cfg.name})")
+    if scheme == "row":
+        bank = (lines // lpr) % nb
+        row = lines // (lpr * nb)
+    elif scheme == "bank":
+        bank = lines % nb
+        row = lines // (nb * lpr)
+    else:  # bank_xor
+        row = lines // (lpr * nb)
+        bank = ((lines // lpr) ^ row) % nb
+    bank = torch.where(mask, bank.to(torch.int32), -1)
+    row = torch.where(mask, row.to(torch.int32), 0)
+    return bank, row
+
+
+def emit_bank_row_device(traces, cfg, min_len: int = 256, device=None):
+    """Pack many traces into padded ``[B, L]`` bank/row tensors on
+    ``device`` (``None``: the CUDA card), with the address decode run there
+    in one pass.
+
+    Line streams are gathered host-side (the lazy IR computes merge orders
+    from eager lengths, so line emission stays a host pass), but the
+    per-request decode arithmetic -- the O(total requests) part -- runs on
+    the device and the result stays there, in exactly the layout the timing
+    kernel consumes.  Bit-identical to ``engine.TraceBatch.from_traces`` with
+    ``pad_batch=False``.
+
+    Returns ``(bank, row, lengths)``: int32 ``[B, L]`` tensors (bank padded
+    with -1, the engines' no-op) and host int64 lengths."""
+    dev = resolve_device(device)
+    lengths = np.array([t.n for t in traces], dtype=np.int64)
+    longest = int(lengths.max()) if len(traces) else 0
+    L = min_len
+    while L < longest:
+        L *= 2
+    B = max(len(traces), 1)
+    lines = np.zeros((B, L), dtype=np.int64)
+    mask = np.zeros((B, L), dtype=bool)
+    for i, t in enumerate(traces):
+        if not t.n:
+            continue
+        _as_lazy(t).emit_lines(lines[i, : t.n])
+        mask[i, : t.n] = True
+    return (*decode_lines_device(torch.from_numpy(lines).to(dev),
+                                 torch.from_numpy(mask).to(dev), cfg), lengths)

@@ -163,13 +163,13 @@ def test_default_device_raises_without_cuda(monkeypatch):
         run_accelerator("hitgraph", g, PROBLEMS["bfs"], 0, device="cuda")
 
 
-def test_semexec_device_is_not_ported():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        AccelConfig(semexec="device")
+def test_semexec_device_is_accepted():
+    assert AccelConfig(semexec="device").semexec == "device"
     with pytest.raises(ValueError, match="unknown semantic engine"):
         AccelConfig(semexec="gpu")
     from repro_torch.core import semexec
     assert semexec.resolve_engine("hitgraph", "bfs", "numpy") == "numpy"
+    assert semexec.resolve_engine("hitgraph", "bfs", "device") == "device"
 
 
 _FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -190,8 +190,19 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 def test_port_imports_nothing_of_jax_or_the_reference():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    port = ROOT / "src" / "repro_torch"
+    files = sorted(port.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    # every CUDA source's Python wrapper and ops, and the device engine
+    must_cover = [port / "core" / "semexec.py", port / "core" / "trace.py",
+                  port / "kernels" / "_build.py", port / "kernels" / "_platform.py"]
+    for cu in sorted((port / "csrc").glob("*.cu")):
+        pkg = port / "kernels" / cu.stem
+        must_cover += [pkg / "__init__.py", pkg / f"{cu.stem}.py"]
+    assert {"dram_timing", "edge_update", "spmv"} <= {p.parent.name for p in must_cover}
+    must_cover += [port / "kernels" / k / "ops.py" for k in ("edge_update", "spmv")]
+    for f in must_cover:
+        assert f in files, f"{f.relative_to(ROOT)} is missing"
     for f in files:
         bad = _imported_roots(f) & set(_FORBIDDEN)
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
