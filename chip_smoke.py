@@ -7,9 +7,9 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``.
 Phases, one JSON line each on stdout:
 
 1. device  -- the card (nvidia-smi name and power limit), torch and CUDA.
-2. build   -- compile ``src/repro_torch/csrc/{dram_timing,edge_update,spmv}.cu``
-              for sm_90a into ``build/repro_torch/`` (one nvcc per source, all
-              started together; plain C interface, ctypes).
+2. build   -- compile ``src/repro_torch/csrc/{dram_timing,edge_update,spmv,
+              attention}.cu`` for sm_90a into ``build/repro_torch/`` (one nvcc
+              per source, all started together; plain C interface, ctypes).
 3. kernel  -- each kernel against its plain PyTorch version on the same CUDA
               tensors.  DRAM timing, bit for bit: random [64, 4096] batches
               for every preset x page policy, and the first 8,192 requests of
@@ -17,7 +17,12 @@ Phases, one JSON line each on stdout:
               random f32 (+inf sources, src -1 edges, empty segments,
               negative values) and int32 (int32-max sources) inputs, and the
               real ``lj`` HitGraph min layout.  SpMV: the real ``lj`` PageRank
-              ELL layout, with its max abs error.
+              ELL layout, with its max abs error.  Attention, within the
+              reference's tolerances (2e-5 in f32, 2e-2 in bf16; TF32 is
+              off for every matmul): the shape set of
+              ``tests/test_kernels.py``, qwen3's heads (16/8, hd 128) at
+              S 1,024 and on a ragged S, and a non-causal case, in f32 and
+              bf16.
 4. main    -- the main path at full size: 18 scenarios on the paper graph
               ``lj`` and the 8 tiny golden scenarios through
               ``run_accelerator(..., device=None)``, i.e. on the card.  Every trace hash, TimingReport field, iteration count and
@@ -36,7 +41,26 @@ Phases, one JSON line each on stdout:
               ``layout["engine"] == "device"``; the 8 bfs/pr pairs must equal
               the goldens too.  The edge-update and SpMV kernels must have
               launched.
-6. kernels -- one line per ported kernel: launches on its path, its time at
+6. serve_golden -- the LM serving path in f32 on the card against
+              ``tests/data/torch_golden_serve.json`` (written from the JAX
+              reference): ``qwen3_0_6b.reduced()`` and qwen3 at full width
+              cut to 2 layers, weights from ``interop.lm_params_numpy``.
+              Teacher-forced logits of every step within the file's
+              tolerance; ``ServeEngine``'s greedy tokens equal up to each
+              request's first near-tie (counted and printed).
+7. serve   -- the LM serving path at full size: ``qwen3_0_6b`` at its
+              published widths and depth (28 layers) in bf16, weights from
+              ``Model.init`` with a seeded generator on the card.
+              ``ServeEngine(batch=4, max_seq=1056)`` answers 8 requests of
+              1,024 seeded prompt tokens and 32 new tokens (two waves).
+              Every request must be answered with tokens in the vocab, the
+              tokens must equal a stepwise greedy loop over ``prefill`` and
+              ``decode_step``, and every prefill layer must have launched the
+              attention kernel (28 x waves).  The kernel is then held against
+              its plain version on the real q/k/v of layer 0 of wave 1.
+              Printed: wall per wave, prefill and decode tokens per second,
+              and the share of prefill time inside the attention kernel.
+8. kernels -- one line per ported kernel: launches on its path, its time at
               the path's largest call (CUDA events), its bound, the plain
               version's time and, where one PyTorch call computes the same
               function, that call's time.
@@ -68,7 +92,16 @@ PEAK_SCALAR_OPS_PER_S = 67e12
 # int32 operations per valid request in the state machine's update
 # (compares, max, adds and selects of one step; see csrc/dram_timing.cu).
 OPS_PER_REQUEST = 20
-KERNELS = ("dram_timing", "edge_update", "spmv")
+KERNELS = ("dram_timing", "edge_update", "spmv", "attention")
+# bf16 tensor-core peak (H100 SXM data sheet, dense), the rate of the
+# attention kernel's operations on its bf16 inputs at the serving path
+PEAK_BF16_OPS_PER_S = 989e12
+SERVE_GOLDEN = ROOT / "tests" / "data" / "torch_golden_serve.json"
+# the reference's own attention tolerances (tests/test_kernels.py)
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SERVE_ARCH = "qwen3_0_6b"
+SERVE_BATCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 8, 1024, 32
+SERVE_MAX_SEQ = 1056
 # acc values of the device engine against the numpy engine: the sums
 # associate in another order than np.add.at (tests/test_semexec.py:58)
 ACC_RTOL, ACC_ATOL = 1e-5, 1e-6
@@ -506,7 +539,8 @@ def device_pairs() -> list[tuple[str, str]]:
 class KernelRecorder:
     """Times every wrapper call the path makes, with CUDA events around the
     port's own call sites (the wrappers still do the counting), and keeps a
-    copy of the inputs of each kernel's largest call."""
+    copy of the inputs of each kernel's largest call (the first of equal
+    sizes)."""
 
     SITES = {  # kernel -> (module path, attribute, size of a call's inputs)
         "dram_timing": ("repro_torch.core.engine", "dram_timing_batch",
@@ -515,6 +549,8 @@ class KernelRecorder:
                         lambda src, *a, **k: src.numel()),
         "spmv": ("repro_torch.kernels.spmv.ops", "spmv_ell",
                  lambda idx, *a, **k: idx.numel()),
+        "attention": ("repro_torch.models.attention", "flash_attention",
+                      lambda q, *a, **k: q.numel()),
     }
 
     def __init__(self):
@@ -733,6 +769,262 @@ def phase_spmv_timing(args) -> dict:
                 shape=[rows, d], bytes=nbytes)
 
 
+# ---------------------------------------------------------------------------
+# the LM serving path and the attention kernel
+# ---------------------------------------------------------------------------
+
+
+def compare_attention(q, k, v, causal: bool, label: str) -> float:
+    """Kernel against plain on the same CUDA tensors; returns the max abs
+    error, after checking it against the dtype's tolerance."""
+    import torch
+
+    from repro_torch.kernels.attention import attention_fwd, attention_plain
+
+    got = attention_fwd(q, k, v, causal=causal)
+    want = attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[str(q.dtype).removeprefix("torch.")]
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(got).all()), f"attention kernel gave non-finite values on {label}")
+    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+          f"attention kernel != plain on {label}: max abs err {err} (tolerance {tol})")
+    return err
+
+
+def phase_attention_vs_plain(dev) -> float:
+    """Kernel == plain within the reference's tolerances on random inputs."""
+    import numpy as np
+    import torch
+
+    cases = [(1, 128, 2, 2, 64, True), (2, 256, 4, 2, 64, True),
+             (1, 256, 4, 1, 32, True), (2, 384, 8, 8, 128, True),  # tests/test_kernels.py
+             (4, 1024, 16, 8, 128, True), (2, 160, 16, 8, 128, True),  # qwen3, ragged S
+             (2, 256, 4, 2, 64, False)]  # non-causal
+    rng = np.random.default_rng(2026)
+    worst = {}
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, nq, nkv, hd, causal in cases:
+            q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, hd), np.float32))
+                       .to(dev, dtype) for n in (nq, nkv, nkv))
+            err = compare_attention(q, k, v, causal, f"{(b, s, nq, nkv, hd)} {dtype} "
+                                    f"causal={causal}")
+            key = str(dtype).removeprefix("torch.")
+            worst[key] = max(worst.get(key, 0.0), err)
+    emit(dict(phase="kernel", kernel="attention", cases=2 * len(cases), max_abs_err=worst,
+              tolerance=ATTN_TOL, tf32=False, seconds=round(time.perf_counter() - t0, 3)))
+    return max(worst.values())
+
+
+def phase_serve_golden(dev) -> dict:
+    """The serving path in f32 on the card against the reference's goldens."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.interop import lm_params_numpy, load_lm_params
+    from repro_torch.models import Model
+    from repro_torch.serve.legacy.engine import Request, ServeEngine
+
+    golden = json.loads(SERVE_GOLDEN.read_text())
+    tol, near_tie = golden["tolerance"], golden["near_tie"]
+    t0 = time.perf_counter()
+    out = {}
+    for g in golden["configs"]:
+        cfg = ArchConfig(**g["config"])
+        model = load_lm_params(Model(cfg), lm_params_numpy(cfg, g["weight_seed"]))
+        prompts = np.asarray(g["prompts"], np.int32)
+        tokens = np.asarray(g["tokens"], np.int32)
+        want = np.frombuffer(base64.b64decode(g["logits_f32_b64"]),
+                             np.float32).reshape(g["logits_shape"])
+        n, max_new = tokens.shape
+        s = prompts.shape[1]
+        cache = model.init_cache(n, s + max_new)
+        logits, cache = model.prefill({"tokens": torch.from_numpy(prompts).to(dev)}, cache)
+        err = 0.0
+        for step in range(max_new):
+            got = logits[:, -1, : cfg.vocab].float().cpu().numpy()
+            err = max(err, float(np.abs(got - want[:, step]).max()))
+            check(np.allclose(got, want[:, step], rtol=tol, atol=tol),
+                  f"serve golden {g['name']}: step {step} logits differ by {err} (tolerance {tol})")
+            if step + 1 < max_new:
+                nxt = torch.from_numpy(tokens[:, step:step + 1]).to(dev)
+                logits, cache = model.decode_step(nxt, cache, s + step)
+        served = ServeEngine(model, batch=n, max_seq=s + max_new).run(
+            [Request(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)])
+        check(len(served) == n, f"serve golden {g['name']}: {len(served)} of {n} answered")
+        margins = np.asarray(g["margins"])
+        ties = compared = 0
+        for r in served:
+            tie_steps = np.flatnonzero(margins[r.rid] <= near_tie)
+            upto = int(tie_steps[0]) if len(tie_steps) else max_new
+            ties += len(tie_steps)
+            compared += upto
+            check(r.out[:upto].tolist() == tokens[r.rid, :upto].tolist(),
+                  f"serve golden {g['name']}: request {r.rid} tokens {r.out.tolist()} "
+                  f"!= {tokens[r.rid].tolist()}")
+        out[g["name"]] = dict(max_abs_err=err, near_ties=ties, tokens_compared=compared,
+                              tokens=n * max_new)
+        del model, cache
+    emit(dict(phase="serve_golden", configs=out, tolerance=tol, near_tie=near_tie,
+              dtype="float32", seconds=round(time.perf_counter() - t0, 3)))
+    return out
+
+
+def phase_serve(dev, card: str) -> dict:
+    """Full-width qwen3_0_6b in bf16 through ``ServeEngine.run``; the launch
+    counts are zeroed just before the run and read just after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import _platform
+    from repro_torch.models import Model
+    from repro_torch.serve.legacy.engine import Request, ServeEngine
+
+    cfg = get_arch(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(2026)
+    prompts = [rng.integers(0, cfg.vocab, SERVE_PROMPT).astype(np.int32)
+               for _ in range(SERVE_REQUESTS)]
+    engine = ServeEngine(model, batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ)
+    # set-up: one short wave warms cuBLAS and the lazily loaded kernels
+    engine.run([Request(rid=0, prompt=prompts[0][:64], max_new=2)])
+
+    phases: list = []  # (kind, seconds) of every prefill / decode call
+    prefill, decode = engine.prefill, engine.decode
+
+    def timed(kind, fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            phases.append((kind, time.perf_counter() - t))
+            return out
+        return call
+
+    engine.prefill, engine.decode = timed("prefill", prefill), timed("decode", decode)
+    requests = [Request(rid=i, prompt=p, max_new=SERVE_NEW) for i, p in enumerate(prompts)]
+    waves = -(-SERVE_REQUESTS // SERVE_BATCH)
+    with KernelRecorder() as rec:
+        _platform.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = engine.run(requests)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _platform.launch_counts()
+    attn_ms = rec.kernel_ms()["attention"]
+    calls = sum(1 for e in rec.events if e[0] == "attention")
+    engine.prefill, engine.decode = prefill, decode
+    check(sorted(r.rid for r in done) == list(range(SERVE_REQUESTS)),
+          f"served {len(done)} of {SERVE_REQUESTS} requests")
+    for r in done:
+        check(r.out is not None and len(r.out) == SERVE_NEW,
+              f"request {r.rid}: {None if r.out is None else len(r.out)} tokens")
+        check(bool(np.all((r.out >= 0) & (r.out < cfg.vocab))),
+              f"request {r.rid}: a token outside [0, {cfg.vocab})")
+    check(counts["attention"] == cfg.n_layers * waves,
+          f"attention launches {counts['attention']} != {cfg.n_layers} layers x {waves} waves")
+    check(counts["attention"] == calls,
+          f"attention launches {counts['attention']} != calls on the path {calls}")
+
+    # the card's twin of tests/test_serving.py's stepwise greedy check
+    by_rid = {r.rid: r.out.tolist() for r in done}
+    for w in range(waves):
+        wave = prompts[w * SERVE_BATCH:(w + 1) * SERVE_BATCH]
+        cache = model.init_cache(SERVE_BATCH, SERVE_MAX_SEQ)
+        toks = torch.from_numpy(np.stack(wave)).to(dev)
+        logits, cache = model.prefill({"tokens": toks}, cache)
+        outs = [[] for _ in wave]
+        for step in range(SERVE_NEW):
+            cur = torch.argmax(logits[:, -1, : cfg.vocab], dim=-1)
+            for i, t in enumerate(cur.tolist()):
+                outs[i].append(t)
+            logits, cache = model.decode_step(cur.to(torch.int32)[:, None], cache,
+                                              SERVE_PROMPT + step)
+        for i, o in enumerate(outs):
+            check(by_rid[w * SERVE_BATCH + i] == o,
+                  f"request {w * SERVE_BATCH + i}: engine tokens != stepwise greedy")
+
+    prefill_s = sum(t for k, t in phases if k == "prefill")
+    decode_s = sum(t for k, t in phases if k == "decode")
+    decode_steps = sum(1 for k, _ in phases if k == "decode")
+    info = dict(arch=cfg.arch, dtype=cfg.dtype, n_layers=cfg.n_layers, params=params,
+                requests=SERVE_REQUESTS, batch=SERVE_BATCH, waves=waves,
+                prompt_tokens=SERVE_PROMPT, new_tokens=SERVE_NEW, wall_s=wall,
+                wall_per_wave_s=wall / waves, prefill_s=prefill_s, decode_s=decode_s,
+                prefill_tok_per_s=waves * SERVE_BATCH * SERVE_PROMPT / prefill_s,
+                decode_tok_per_s=decode_steps * SERVE_BATCH / decode_s,
+                decode_steps=decode_steps, attention_ms=attn_ms,
+                attention_share_of_prefill=attn_ms / 1e3 / prefill_s,
+                launches=counts["attention"], init_s=init_s,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit(dict(phase="serve", card=card, **{k: round(v, 6) if isinstance(v, float) else v
+                                           for k, v in info.items()}))
+
+    # the kernel against its plain version on the real q/k/v of layer 0 of
+    # wave 1 (every call has one size, so the recorder kept the first)
+    q, k, v = rec.largest["attention"][1]
+    causal = True  # dense prefill self-attention
+    info["real_qkv_err"] = compare_attention(q, k, v, causal, "the serve path's layer 0")
+    emit(dict(phase="kernel", kernel="attention", case="serve layer 0, wave 1",
+              shape=[list(q.shape), list(k.shape)], dtype=str(q.dtype),
+              max_abs_err=info["real_qkv_err"], tolerance=ATTN_TOL["bfloat16"]))
+    info["largest"] = (q, k, v, causal)
+    del model, engine
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_attention_timing(q, k, v, causal: bool) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import attention_fwd, attention_plain
+
+    ms = cuda_ms(lambda: attention_fwd(q, k, v, causal=causal), reps=20)
+    plain_ms = cuda_ms(lambda: attention_plain(q, k, v, causal=causal), reps=10)
+    got = attention_fwd(q, k, v, causal=causal)
+    want = attention_plain(q, k, v, causal=causal)
+    # the library yardstick, on (B, H, S, D) views of the same tensors
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    library_ms = cuda_ms(library, reps=20)
+    tol = ATTN_TOL[str(q.dtype).removeprefix("torch.")]
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+          f"attention kernel != plain at the largest call: {err}")
+    lib = library().transpose(1, 2).float()
+    lib_err = float((lib - got.float()).abs().max())
+    check(torch.allclose(lib, got.float(), rtol=2 * tol, atol=2 * tol),
+          f"attention kernel disagrees with SDPA: {lib_err}")
+    b, s, nq, hd = q.shape
+    nkv = k.shape[2]
+    pairs = b * nq * (s * (s + 1) // 2 if causal else s * s)  # (query, key) pairs
+    flops = 4 * hd * pairs  # QK^T and PV, a multiply and an add each
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_BF16_OPS_PER_S * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                library="torch.nn.functional.scaled_dot_product_attention"
+                        "(is_causal, enable_gqa)",
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                max_abs_err=err, library_max_abs_err=lib_err,
+                shape=[b, s, nq, nkv, hd], dtype=str(q.dtype), flops=flops, bytes=nbytes)
+
+
 def main() -> None:
     try:
         import torch
@@ -740,10 +1032,15 @@ def main() -> None:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
-    if not (ROOT / "src" / "repro_torch").is_dir() or not GOLDEN.exists():
+    if not (ROOT / "src" / "repro_torch").is_dir() or not GOLDEN.exists() \
+            or not SERVE_GOLDEN.exists():
         fail(f"run from the repository root: {ROOT} holds no src/repro_torch")
     sys.path.insert(0, str(ROOT / "src"))
     dev = torch.device("cuda")
+    # every float32 matmul and convolution in full f32: TF32 keeps ~3 digits,
+    # too few for the attention and serve_golden tolerances
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # 1. device
     smi = nvidia_smi()
@@ -778,6 +1075,7 @@ def main() -> None:
     lay_min, lay_acc = lj_device_layouts(graphs, dev)
     worst["edge_update"] = phase_edge_update_vs_plain(dev, graphs, lay_min)
     worst["spmv"] = phase_spmv_vs_plain(dev, lay_acc, graphs["lj"].n)
+    worst["attention"] = phase_attention_vs_plain(dev)
     del lay_min, lay_acc
 
     # 4. main path (numpy semantics)
@@ -786,14 +1084,23 @@ def main() -> None:
     # 5. the semexec="device" path
     device_rows, device_info = phase_main_device(graphs)
 
-    # 6. kernel timing at each path's largest call
+    # 6. the LM serving path in f32 against the reference's goldens
+    serve_golden = phase_serve_golden(dev)
+
+    # 7. the LM serving path at full size
+    serve = phase_serve(dev, smi)
+    worst["attention"] = max(worst["attention"], serve["real_qkv_err"])
+
+    # 8. kernel timing at each path's largest call
     timing = {"dram_timing": phase_kernel_timing(dev, info["batch"]),
               "edge_update": phase_edge_update_timing(
                   device_info["largest"]["edge_update"][1]),
-              "spmv": phase_spmv_timing(device_info["largest"]["spmv"][1])}
+              "spmv": phase_spmv_timing(device_info["largest"]["spmv"][1]),
+              "attention": phase_attention_timing(*serve.pop("largest"))}
     launches = {"dram_timing": info["counts"]["dram_timing"],
                 "edge_update": device_info["counts"]["edge_update"],
-                "spmv": device_info["counts"]["spmv"]}
+                "spmv": device_info["counts"]["spmv"],
+                "attention": serve["launches"]}
     for name in KERNELS:
         emit(dict(phase="kernel_timing", kernel=name, launches=launches[name],
                   **timing[name]))
@@ -801,11 +1108,13 @@ def main() -> None:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, scenarios=rows, device_pairs=device_rows,
-             kernel_timing=timing), indent=1) + "\n")
+             serve_golden=serve_golden, serve=serve, kernel_timing=timing),
+        indent=1) + "\n")
 
     replaces = {"dram_timing": "src/repro/kernels/dram_timing/dram_timing.py:120",
                 "edge_update": "src/repro/kernels/edge_update/edge_update.py:53",
-                "spmv": "src/repro/kernels/spmv/spmv.py:36"}
+                "spmv": "src/repro/kernels/spmv/spmv.py:36",
+                "attention": "src/repro/kernels/attention/attention.py:79"}
     emit(dict(kernels=[dict(
         name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
         replaces=replaces[name], launches=launches[name],

@@ -17,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-LAUNCHES: dict[str, int] = {"dram_timing": 0, "edge_update": 0, "spmv": 0}
+LAUNCHES: dict[str, int] = {"dram_timing": 0, "edge_update": 0, "spmv": 0,
+                             "attention": 0}
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,0 +1,5 @@
+"""LM model definitions of the port (dense family): ``Model`` binds an
+``ArchConfig`` to its weights and to forward / prefill / decode."""
+from repro_torch.models.model import Model, padded_vocab
+
+__all__ = ["Model", "padded_vocab"]

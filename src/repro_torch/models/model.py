@@ -1,0 +1,135 @@
+"""Model-level API for serving (port of ``repro/models/model.py``, dense
+family).
+
+``Model(cfg, device=None)`` is an ``nn.Module`` that holds its weights,
+named as the reference's parameter pytree (``embed.tok``, ``embed.head``,
+``blocks.<layer>.{norm1,attn,norm2,mlp}.*``, ``final_norm.scale``).  It is
+allocated on ``device`` (``None``: the CUDA card, raising without one) and
+filled by ``init(generator)`` or by ``interop.load_lm_params``.  Batches
+are dicts ``{"tokens": (B, S) int}``, as in the reference; decode takes
+``tokens (B, 1)``, the cache and one position for the whole batch.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels._platform import resolve_device
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers import (
+    RMSNorm,
+    dense_init_,
+    dtype_of,
+    embed,
+    embed_init_,
+    unembed,
+    weight,
+)
+
+VOCAB_ALIGN = 256  # the reference pads the vocab for its sharding; kept for parity
+
+
+def padded_vocab(vocab: int) -> int:
+    return -(-vocab // VOCAB_ALIGN) * VOCAB_ALIGN
+
+
+class Embedding(nn.Module):
+    """``tok`` (vocab_padded, d) and, untied, ``head`` (d, vocab_padded)."""
+
+    def __init__(self, vocab: int, d: int, tie: bool, dtype, device):
+        super().__init__()
+        self.tok = weight(vocab, d, dtype=dtype, device=device)
+        self.head = None if tie else weight(d, vocab, dtype=dtype, device=device)
+
+
+class Model(nn.Module):
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        if cfg.family != "dense":
+            raise tf.not_ported(f"family {cfg.family!r} ({cfg.arch})", cfg.family)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        dtype = dtype_of(cfg.dtype)
+        self.embed = Embedding(self.vocab_padded, cfg.d_model, cfg.tie_embeddings,
+                               dtype, self.device)
+        self.blocks = nn.ModuleList(tf.Block(cfg, spec, dtype, self.device)
+                                    for spec in self.program)
+        self.final_norm = RMSNorm(cfg.d_model, dtype, self.device)
+
+    # ---- structure ----
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return dtype_of(self.cfg.dtype)
+
+    @property
+    def program(self) -> list[tf.LayerSpec]:
+        return tf.layer_program(self.cfg)
+
+    @property
+    def vocab_padded(self) -> int:
+        return padded_vocab(self.cfg.vocab)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "Model":
+        """Random weights with the reference's distributions (fan-in
+        truncated normal, embedding normal x 0.01, unit norms, zero biases),
+        drawn from ``generator`` on its device.  Returns the model."""
+        embed_init_(self.embed.tok, generator)
+        if self.embed.head is not None:
+            dense_init_(self.embed.head, generator)
+        for blk in self.blocks:
+            blk.init(generator)
+        for name, p in self.named_parameters():
+            if name.endswith(".scale"):
+                p.fill_(1.0)
+            elif name.rsplit(".", 1)[-1] in ("bq", "bk", "bv"):
+                p.zero_()
+        return self
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, device=self.device)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.final_norm(x)
+        logits = unembed(x, self.embed.tok, self.embed.head)
+        return _mask_padded_vocab(logits, self.cfg.vocab)
+
+    # ---- forward ----
+
+    @torch.no_grad()
+    def forward(self, batch: dict) -> torch.Tensor:
+        """Logits (B, S, vocab_padded) in the compute dtype."""
+        x = embed(self.embed.tok, self._tokens(batch["tokens"])).to(self.dtype)
+        x = tf.stack_forward(self.blocks, self.cfg, x)
+        return self._logits(x)
+
+    # ---- serving ----
+
+    def init_cache(self, batch: int, max_seq: int) -> dict:
+        return {"blocks": tf.stack_cache_init(self.cfg, self.program, batch, max_seq,
+                                              self.dtype, self.device)}
+
+    @torch.no_grad()
+    def prefill(self, batch: dict, cache: dict):
+        """Run the full prompt, fill the cache; returns (last_logits (B, 1,
+        vocab_padded), cache)."""
+        x = embed(self.embed.tok, self._tokens(batch["tokens"])).to(self.dtype)
+        x, blocks = tf.stack_prefill(self.blocks, self.cfg, x, cache["blocks"])
+        return self._logits(x[:, -1:, :]), dict(cache, blocks=blocks)
+
+    @torch.no_grad()
+    def decode_step(self, tokens, cache: dict, pos: int):
+        """One token for the whole batch.  tokens: (B, 1); pos: int."""
+        x = embed(self.embed.tok, self._tokens(tokens)).to(self.dtype)
+        x, blocks = tf.stack_decode(self.blocks, self.cfg, x, cache["blocks"], int(pos))
+        return self._logits(x), dict(cache, blocks=blocks)
+
+
+def _mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    if logits.shape[-1] == vocab:
+        return logits
+    pad = logits.shape[-1] - vocab
+    bias = torch.cat([torch.zeros(vocab, dtype=logits.dtype, device=logits.device),
+                      torch.full((pad,), -1e30, dtype=logits.dtype, device=logits.device)])
+    return logits + bias

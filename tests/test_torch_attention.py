@@ -1,0 +1,110 @@
+"""The port's attention (``repro_torch.kernels.attention``) against the JAX
+package's flash-attention kernel in interpret mode.
+
+The same numpy inputs, made from a seed, go through the reference
+``repro.kernels.attention.ops.flash_attention(..., interpret=True)`` and
+through the port's ``attention_plain`` and CPU ``flash_attention``.
+Tolerances are the reference's own (``tests/test_kernels.py``): 2e-5 in
+f32, 2e-2 in bf16.  The CUDA kernel itself is held against
+``attention_plain`` on the card by ``chip_smoke.py``.
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.attention.ops import flash_attention as ref_flash_attention
+from repro.models.attention import _sdpa as ref_sdpa
+from repro.models.attention import causal_mask as ref_causal_mask
+from repro_torch.kernels import _platform
+from repro_torch.kernels.attention import attention_plain, flash_attention
+from repro_torch.models.attention import _sdpa, causal_mask
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+SHAPES = [  # tests/test_kernels.py's set, then qwen3's heads on a ragged S
+    (1, 128, 2, 2, 64),
+    (2, 256, 4, 2, 64),   # GQA group 2
+    (1, 256, 4, 1, 32),   # MQA, head_dim 32
+    (2, 384, 8, 8, 128),  # S past one 128-row block
+    (2, 160, 16, 8, 128),  # qwen3: GQA 16/8, hd 128, S with a ragged tail
+]
+
+
+def _inputs(b, s, nq, nkv, hd, dtype, seed):
+    rng = np.random.default_rng(seed)
+    arrays = [rng.normal(size=(b, s, n, hd)).astype(np.float32) for n in (nq, nkv, nkv)]
+    ref = [jnp.asarray(a, JNP[dtype]) for a in arrays]
+    port = [torch.from_numpy(a).to(TORCH[dtype]) for a in arrays]
+    return ref, port
+
+
+def _close(got: torch.Tensor, want, tol: float) -> None:
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_matches_reference_kernel(shape, dtype):
+    _platform.reset_launches()
+    ref, port = _inputs(*shape, dtype, seed=sum(shape))
+    want = ref_flash_attention(*ref, causal=True, interpret=True)
+    b, s, nq, _, hd = shape
+    out = flash_attention(*port, causal=True)
+    assert out.shape == (b, s, nq * hd) and out.dtype == TORCH[dtype]
+    _close(out, want, TOL[dtype])
+    _close(attention_plain(*port, causal=True).reshape(b, s, nq * hd), want, TOL[dtype])
+    assert _platform.LAUNCHES["attention"] == 0  # the CPU takes the plain version
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_non_causal_matches_reference_kernel(dtype):
+    shape = (2, 256, 4, 2, 64)
+    ref, port = _inputs(*shape, dtype, seed=7)
+    want = ref_flash_attention(*ref, causal=False, interpret=True)
+    _close(flash_attention(*port, causal=False), want, TOL[dtype])
+
+
+def test_non_causal_ragged_sequence_raises():
+    _, port = _inputs(1, 160, 4, 2, 64, "float32", seed=0)
+    with pytest.raises(ValueError, match="non-causal"):
+        flash_attention(*port, causal=False)
+    assert flash_attention(*port, causal=True).shape == (1, 160, 256)
+
+
+def test_wrapper_checks_shapes_and_types():
+    _, (q, k, v) = _inputs(1, 64, 4, 2, 32, "float32", seed=1)
+    with pytest.raises(ValueError, match="multiple"):
+        attention_plain(q, k[:, :, :1].expand(1, 64, 3, 32), v[:, :, :1].expand(1, 64, 3, 32))
+    with pytest.raises(TypeError):
+        attention_plain(q, k.double(), v.double())
+    with pytest.raises(ValueError):
+        attention_plain(q, k[:, :32], v[:, :32])
+
+
+def test_sdpa_and_causal_mask_match_reference():
+    rng = np.random.default_rng(3)
+    b, sq, sk, nq, nkv, hd = 2, 5, 24, 8, 2, 32
+    arrays = [rng.normal(size=(b, n, h, hd)).astype(np.float32)
+              for n, h in ((sq, nq), (sk, nkv), (sk, nkv))]
+    np.testing.assert_array_equal(causal_mask(sq, sk, 19).numpy(),
+                                  np.asarray(ref_causal_mask(sq, sk, 19)))
+    want = ref_sdpa(*map(jnp.asarray, arrays), ref_causal_mask(sq, sk, 19))
+    got = _sdpa(*map(torch.from_numpy, arrays), causal_mask(sq, sk, 19))
+    _close(got, want, 1e-6)
+
+
+def test_kernel_matches_model_sdpa():
+    """The port's twin of tests/test_kernels.py's check that the kernel
+    agrees with the model's einsum attention."""
+    rng = np.random.default_rng(0)
+    b, s, nq, nkv, hd = 2, 128, 4, 2, 64
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, hd)).astype(np.float32))
+               for n in (nq, nkv, nkv))
+    _close(flash_attention(q, k, v, causal=True),
+           _sdpa(q, k, v, causal_mask(s, s)).numpy(), 2e-5)

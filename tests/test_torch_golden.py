@@ -199,8 +199,15 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     for cu in sorted((port / "csrc").glob("*.cu")):
         pkg = port / "kernels" / cu.stem
         must_cover += [pkg / "__init__.py", pkg / f"{cu.stem}.py"]
-    assert {"dram_timing", "edge_update", "spmv"} <= {p.parent.name for p in must_cover}
-    must_cover += [port / "kernels" / k / "ops.py" for k in ("edge_update", "spmv")]
+    assert {"dram_timing", "edge_update", "spmv", "attention"} <= \
+        {p.parent.name for p in must_cover}
+    must_cover += [port / "kernels" / k / "ops.py" for k in ("edge_update", "spmv", "attention")]
+    # the LM serving path: configs, models, the engine and the weight carrier
+    must_cover += [port / "configs" / "base.py", port / "configs" / "qwen3_0_6b.py",
+                   port / "interop.py", port / "serve" / "legacy" / "engine.py",
+                   port / "serve" / "legacy" / "serve_step.py"]
+    must_cover += [port / "models" / f"{m}.py"
+                   for m in ("__init__", "layers", "attention", "transformer", "model")]
     for f in must_cover:
         assert f in files, f"{f.relative_to(ROOT)} is missing"
     for f in files:

@@ -1,0 +1,258 @@
+"""The port's LM serving path (``repro_torch.serve.legacy``) against the JAX
+package's, and the serve goldens.
+
+With the reference's own weights carried over, the port's ``ServeEngine``
+on the CPU must give the reference ``ServeEngine``'s tokens on the
+``tests/test_serving.py`` scenarios.
+
+``tests/data/torch_golden_serve.json`` records what the reference serves
+for two f32 configurations, with weights from
+``interop.lm_params_numpy(cfg, seed)``: ``qwen3_0_6b.reduced()`` and
+``qwen3_0_6b`` at its full widths cut to 2 layers and a 1,024-token vocab
+(head_dim 128, GQA 16/8).  Two seeded 160-token prompts (S crosses a
+128-row block with a ragged tail) are decoded greedily for 8 tokens; the
+file keeps the tokens, the logits of every step and each step's top-2
+margin.  The card's machine has no JAX, so ``chip_smoke.py`` holds the port
+on the card against this file; here the port on the CPU is.  The logits
+must agree within ``tolerance`` at every step (teacher-forced), and the
+greedy tokens must agree up to the first step whose top-2 margin is within
+10 x ``tolerance`` (a near-tie may flip).
+
+Regenerate the file (a few seconds on a CPU):
+
+    PYTHONPATH=src python tests/test_torch_serve.py --write
+"""
+from __future__ import annotations
+
+import base64
+import dataclasses
+import json
+import os
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+if __name__ == "__main__":
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.configs.base import get_arch as ref_get_arch  # noqa: E402
+from repro.models import Model as RefModel  # noqa: E402
+from repro.serve.legacy.engine import Request as RefRequest  # noqa: E402
+from repro.serve.legacy.engine import ServeEngine as RefServeEngine  # noqa: E402
+from repro.serve.legacy.serve_step import make_decode_step as ref_make_decode_step  # noqa: E402
+from repro_torch.configs.base import ArchConfig, get_arch  # noqa: E402
+from repro_torch.interop import lm_params_numpy, load_lm_params  # noqa: E402
+from repro_torch.kernels import _platform  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.serve.legacy.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.serve.legacy.serve_step import make_decode_step, make_prefill_step  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+GOLDEN_PATH = ROOT / "tests" / "data" / "torch_golden_serve.json"
+TOLERANCE = 1e-4  # f32 logits, port against the reference (matmul sum order)
+NEAR_TIE = 10 * TOLERANCE
+PROMPT_LEN, N_PROMPTS, MAX_NEW = 160, 2, 8
+
+
+def golden_configs() -> list[tuple[str, ArchConfig, int]]:
+    """(name, f32 config, weight seed) of each golden."""
+    full = get_arch("qwen3_0_6b")
+    return [("qwen3_0_6b.reduced", full.reduced(), 0),
+            ("qwen3_0_6b.full_width.2_layers", dataclasses.replace(
+                full, n_layers=2, vocab=1024, dtype="float32"), 1)]
+
+
+def _prompts(cfg, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(1000 + seed)
+    return rng.integers(0, cfg.vocab, (N_PROMPTS, PROMPT_LEN)).astype(np.int32)
+
+
+def _b64(a: np.ndarray) -> str:
+    return base64.b64encode(np.ascontiguousarray(a, np.float32).tobytes()).decode()
+
+
+def _unb64(s: str, shape) -> np.ndarray:
+    return np.frombuffer(base64.b64decode(s), np.float32).reshape(shape)
+
+
+def write_golden() -> None:
+    """Serve each golden configuration with the JAX reference on the CPU."""
+    records = []
+    for name, cfg, seed in golden_configs():
+        ref_cfg = dataclasses.replace(ref_get_arch(cfg.arch), **dataclasses.asdict(cfg))
+        model = RefModel(ref_cfg)
+        params = jax.tree.map(jnp.asarray, lm_params_numpy(cfg, seed))
+        prompts = _prompts(cfg, seed)
+        max_seq = PROMPT_LEN + MAX_NEW
+        # stepwise greedy, keeping the logits each token was chosen from
+        cache = model.init_cache(N_PROMPTS, max_seq)
+        logits, cache = jax.jit(model.prefill)(params, {"tokens": jnp.asarray(prompts)}, cache)
+        decode = jax.jit(model.decode_step)
+        steps, tokens = [], []
+        for step in range(MAX_NEW):
+            last = np.asarray(logits[:, -1, : cfg.vocab], np.float32)
+            steps.append(last)
+            tokens.append(last.argmax(-1).astype(np.int32))
+            if step + 1 < MAX_NEW:
+                logits, cache = decode(params, jnp.asarray(tokens[-1][:, None]), cache,
+                                       jnp.int32(PROMPT_LEN + step))
+        tokens = np.stack(tokens, 1)  # (N_PROMPTS, MAX_NEW)
+        served = RefServeEngine(model, params, batch=N_PROMPTS, max_seq=max_seq).run(
+            [RefRequest(rid=i, prompt=p, max_new=MAX_NEW) for i, p in enumerate(prompts)])
+        for r in served:
+            assert r.out.tolist() == tokens[r.rid].tolist(), "engine != stepwise greedy"
+        logits = np.stack(steps, 1)  # (N_PROMPTS, MAX_NEW, vocab)
+        top2 = np.sort(logits, axis=-1)[..., -2:]
+        records.append(dict(
+            name=name, config=dataclasses.asdict(cfg), weight_seed=seed,
+            prompts=prompts.tolist(), max_new=MAX_NEW, tokens=tokens.tolist(),
+            margins=(top2[..., 1] - top2[..., 0]).tolist(),
+            logits_shape=list(logits.shape), logits_f32_b64=_b64(logits)))
+        print(name, tokens.tolist(), flush=True)
+    GOLDEN_PATH.parent.mkdir(parents=True, exist_ok=True)
+    GOLDEN_PATH.write_text(json.dumps(dict(tolerance=TOLERANCE, near_tie=NEAR_TIE,
+                                           configs=records), indent=1) + "\n")
+
+
+def _golden() -> dict:
+    return {g["name"]: g for g in json.loads(GOLDEN_PATH.read_text())["configs"]}
+
+
+def test_golden_file_covers_the_configurations():
+    golden = _golden()
+    assert list(golden) == [name for name, _, _ in golden_configs()]
+    for name, cfg, seed in golden_configs():
+        g = golden[name]
+        assert g["config"] == dataclasses.asdict(cfg) and g["weight_seed"] == seed
+        assert g["prompts"] == _prompts(cfg, seed).tolist()
+        assert g["logits_shape"] == [N_PROMPTS, MAX_NEW, cfg.vocab]
+
+
+@pytest.mark.parametrize("name", [name for name, _, _ in golden_configs()])
+def test_port_matches_serve_golden(name):
+    g = _golden()[name]
+    cfg = ArchConfig(**g["config"])
+    model = load_lm_params(Model(cfg, device="cpu"), lm_params_numpy(cfg, g["weight_seed"]))
+    prompts = np.asarray(g["prompts"], np.int32)
+    tokens = np.asarray(g["tokens"], np.int32)
+    want = _unb64(g["logits_f32_b64"], g["logits_shape"])
+    n, max_new = tokens.shape
+    # teacher-forced: every step's logits
+    cache = model.init_cache(n, PROMPT_LEN + max_new)
+    logits, cache = model.prefill({"tokens": torch.from_numpy(prompts)}, cache)
+    for step in range(max_new):
+        np.testing.assert_allclose(logits[:, -1, : cfg.vocab].numpy(), want[:, step],
+                                   rtol=TOLERANCE, atol=TOLERANCE, err_msg=f"step {step}")
+        if step + 1 < max_new:
+            logits, cache = model.decode_step(torch.from_numpy(tokens[:, step:step + 1]),
+                                              cache, PROMPT_LEN + step)
+    # greedy through the engine, up to each request's first near-tie
+    served = ServeEngine(model, batch=n, max_seq=PROMPT_LEN + max_new).run(
+        [Request(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)])
+    margins = np.asarray(g["margins"])
+    for r in served:
+        ties = np.flatnonzero(margins[r.rid] <= NEAR_TIE)
+        upto = int(ties[0]) if len(ties) else max_new  # a near-tie's token may flip
+        assert r.out[:upto].tolist() == tokens[r.rid, :upto].tolist()
+
+
+# ---------------- the tests/test_serving.py scenarios, port vs reference ------
+
+
+@pytest.fixture(scope="module")
+def small_models():
+    cfg = ref_get_arch("qwen3_0_6b").reduced()
+    ref = RefModel(cfg)
+    params = ref.init(jax.random.PRNGKey(0))
+    port = load_lm_params(Model(get_arch("qwen3_0_6b").reduced(), device="cpu"),
+                          jax.tree.map(np.asarray, params))
+    return cfg, ref, params, port
+
+
+def _serve_both(small_models, prompts, max_new, batch, max_seq):
+    _, ref, params, port = small_models
+    want = RefServeEngine(ref, params, batch=batch, max_seq=max_seq).run(
+        [RefRequest(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)])
+    got = ServeEngine(port, batch=batch, max_seq=max_seq).run(
+        [Request(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)])
+    return ({r.rid: r.out.tolist() for r in got}, {r.rid: r.out.tolist() for r in want})
+
+
+def test_engine_serves_all_requests_as_reference(small_models):
+    cfg = small_models[0]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, 12).astype(np.int32) for _ in range(7)]
+    _platform.reset_launches()
+    got, want = _serve_both(small_models, prompts, 6, batch=4, max_seq=48)
+    assert sorted(got) == list(range(7))  # 7 requests, waves of 4
+    assert all(len(o) == 6 and all(0 <= t < cfg.vocab for t in o) for o in got.values())
+    assert got == want
+    assert _platform.LAUNCHES["attention"] == 0  # the CPU runs the plain version
+
+
+def test_engine_matches_stepwise_greedy(small_models):
+    """Engine output == manual prefill + greedy decode (through the serve
+    steps) for one wave of equal-length prompts, and == the reference."""
+    cfg, _, _, port = small_models
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, 10).astype(np.int32) for _ in range(2)]
+    got, want = _serve_both(small_models, prompts, 5, batch=2, max_seq=32)
+    assert got == want
+    prefill, decode = make_prefill_step(port), make_decode_step(port)
+    cache = port.init_cache(2, 32)
+    logits, cache = prefill({"tokens": torch.from_numpy(np.stack(prompts))}, cache)
+    cur = torch.argmax(logits[:, -1, : cfg.vocab], dim=-1).to(torch.int32)[:, None]
+    outs = [[], []]
+    for step in range(5):
+        for i in range(2):
+            outs[i].append(int(cur[i, 0]))
+        cur, logits, cache = decode(cur, cache, 10 + step)
+    assert [got[0], got[1]] == outs
+
+
+def test_decode_step_matches_reference_serve_step(small_models):
+    cfg, ref, params, port = small_models
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (2, 9)).astype(np.int32)
+    rcache = ref.init_cache(2, 12)
+    _, rcache = jax.jit(ref.prefill)(params, {"tokens": jnp.asarray(toks[:, :8])}, rcache)
+    rnext, rlogits, _ = jax.jit(ref_make_decode_step(ref))(
+        params, jnp.asarray(toks[:, 8:]), rcache, jnp.int32(8))
+    pcache = port.init_cache(2, 12)
+    _, pcache = port.prefill({"tokens": torch.from_numpy(toks[:, :8])}, pcache)
+    pnext, plogits, _ = make_decode_step(port)(torch.from_numpy(toks[:, 8:]), pcache, 8)
+    np.testing.assert_array_equal(pnext.numpy(), np.asarray(rnext))
+    np.testing.assert_allclose(plogits[..., : cfg.vocab].numpy(),
+                               np.asarray(rlogits)[..., : cfg.vocab],
+                               rtol=TOLERANCE, atol=TOLERANCE)
+
+
+def test_engine_deterministic(small_models):
+    cfg, _, _, port = small_models
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, 8).astype(np.int32) for _ in range(3)]
+    runs = [ServeEngine(port, batch=4, max_seq=32).run(
+        [Request(rid=i, prompt=p, max_new=4) for i, p in enumerate(prompts)])
+        for _ in range(2)]
+    for a, b in zip(*(sorted(r, key=lambda x: x.rid) for r in runs)):
+        np.testing.assert_array_equal(a.out, b.out)
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_arch("qwen3_0_6b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(cfg, device="cuda")
+    assert Model(cfg, device="cpu").device.type == "cpu"
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] != ["--write"]:
+        sys.exit("usage: PYTHONPATH=src python tests/test_torch_serve.py --write")
+    write_golden()
