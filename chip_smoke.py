@@ -10,14 +10,17 @@ Phases, one JSON line each on stdout:
 2. build   -- compile ``src/repro_torch/csrc/{dram_timing,edge_update,spmv,
               attention}.cu`` for sm_90a into ``build/repro_torch/`` (one nvcc
               per source, all started together; plain C interface, ctypes).
+   sass    -- whether the attention library's SASS holds wgmma (``HGMMA``)
+              and TMA loads (``UTMALDG``), by ``cuobjdump -sass``; "not
+              checked" where the tool is missing, a failure where an opcode is.
 3. kernel  -- each kernel against its plain PyTorch version on the same CUDA
               tensors.  DRAM timing, bit for bit: random [64, 4096] batches
               for every preset x page policy, and the first 8,192 requests of
               the real ``lj/hitgraph/bfs`` batch.  Edge update, bit for bit:
               random f32 (+inf sources, src -1 edges, empty segments,
               negative values) and int32 (int32-max sources) inputs, and the
-              real ``lj`` HitGraph min layout.  SpMV: the real ``lj`` PageRank
-              ELL layout, with its max abs error.  Attention, within the
+              real ``lj`` HitGraph min layout.  SpMV, bit for bit: the real
+              ``lj`` PageRank ELL layout.  Attention, within the
               reference's tolerances (2e-5 in f32, 2e-2 in bf16; TF32 is
               off for every matmul): the shape set of
               ``tests/test_kernels.py``, qwen3's heads (16/8, hd 128) at
@@ -63,7 +66,10 @@ Phases, one JSON line each on stdout:
 8. kernels -- one line per ported kernel: launches on its path, its time at
               the path's largest call (CUDA events), its bound, the plain
               version's time and, where one PyTorch call computes the same
-              function, that call's time.
+              function, that call's time.  SpMV and attention are timed in
+              turn with their library call over 7 rounds, each round as a
+              replayed CUDA graph (the device time, ``ms``) and back to back
+              from the host (``eager_ms``): median, min and max.
 
 Any mismatch raises and the exit code is nonzero; without a CUDA card, or
 outside the repository, it exits nonzero before printing any result.  The
@@ -92,6 +98,13 @@ PEAK_SCALAR_OPS_PER_S = 67e12
 # int32 operations per valid request in the state machine's update
 # (compares, max, adds and selects of one step; see csrc/dram_timing.cu).
 OPS_PER_REQUEST = 20
+# The chain from one request's bus_free to the next's in csrc/dram_timing.cu
+# (a conflict: horizon's add and max, t_pre's max, t_act's add and max,
+# new_ready's add, slot_end's max and add), at an assumed 4 cycles of
+# dependent-issue latency each, at the H100 SXM's 1,980 MHz maximum SM clock.
+CHAIN_OPS_PER_REQUEST = 8
+CHAIN_OP_CYCLES = 4
+SM_CLOCK_HZ = 1.98e9
 KERNELS = ("dram_timing", "edge_update", "spmv", "attention")
 # bf16 tensor-core peak (H100 SXM data sheet, dense), the rate of the
 # attention kernel's operations on its bf16 inputs at the serving path
@@ -102,6 +115,14 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SERVE_ARCH = "qwen3_0_6b"
 SERVE_BATCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 8, 1024, 32
 SERVE_MAX_SEQ = 1056
+# rounds of the alternated kernel / library timings (median and spread)
+TIMING_ROUNDS = 7
+# the bf16 attention kernel must run wgmma and load by TMA: SASS opcodes
+ATTENTION_SASS = ("HGMMA", "UTMALDG")
+# keys of a kernel's timing that its line in the kernels JSON carries too
+EXTRA_KEYS = ("latency_bound_ms", "ms_min", "ms_max", "library_ms_min", "library_ms_max", "eager_ms",
+               "eager_ms_min", "eager_ms_max", "eager_library_ms", "eager_library_ms_min",
+               "eager_library_ms_max", "rounds")
 # acc values of the device engine against the numpy engine: the sums
 # associate in another order than np.add.at (tests/test_semexec.py:58)
 ACC_RTOL, ACC_ATOL = 1e-5, 1e-6
@@ -144,6 +165,66 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` calls captured in
+    one CUDA graph and replayed: the card's time for the work, without the
+    host's enqueue of each call (which, for a call of ~10 us, is longer than
+    the call and sets the pace of ``cuda_ms``)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as capture asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def alternate_ms(fns: dict, reps: int, rounds: int = TIMING_ROUNDS) -> dict:
+    """Times each of ``fns`` in turn, ``rounds`` times over (a, b, a, b, ...),
+    so that a drift of the card's clocks reaches all of them alike: each
+    round by a replayed CUDA graph (``graph_ms``, the device time) and back to
+    back from the host (``cuda_ms``, which a short call's enqueue can set).
+    Returns per name the median, min and max of both."""
+    import statistics
+
+    times = {name: {"graph": [], "eager": []} for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name]["graph"].append(graph_ms(fn, reps=reps))
+            times[name]["eager"].append(cuda_ms(fn, reps=reps))
+    return {name: {kind: dict(median=statistics.median(t), min=min(t), max=max(t), rounds=t)
+                   for kind, t in by_kind.items()}
+            for name, by_kind in times.items()}
+
+
+def spread(t: dict) -> dict:
+    """From ``alternate_ms``'s kernel and library: the graph-timed median
+    (``ms``, ``library_ms``), min and max, and the same back to back
+    (``eager_ms``, ...), with every round."""
+    out = dict(rounds=TIMING_ROUNDS)
+    for who, key in (("kernel", "ms"), ("library", "library_ms")):
+        for kind, prefix in (("graph", ""), ("eager", "eager_")):
+            stats = t[who][kind]
+            out[prefix + key] = stats["median"]
+            out[prefix + key + "_min"] = stats["min"]
+            out[prefix + key + "_max"] = stats["max"]
+            out[prefix + key + "_rounds"] = stats["rounds"]
+    return out
 
 
 def timing_kwargs(cfg) -> dict:
@@ -302,8 +383,8 @@ def phase_spmv_vs_plain(dev, lay_acc, n: int) -> float:
     coo = spmv_coo_plain(lay_acc["src"], lay_acc["dst"], lay_acc["w"], x, n)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    check(torch.allclose(got, want, rtol=ACC_RTOL, atol=ACC_ATOL),
-          f"spmv kernel != plain on the lj ELL: max abs err {err}")
+    check(torch.equal(got, want),
+          f"spmv kernel != plain, bit for bit, on the lj ELL: max abs err {err}")
     check(torch.allclose(got[:n], coo, rtol=ACC_RTOL, atol=ACC_ATOL),
           "spmv kernel disagrees with the COO sum on the lj ELL")
     emit(dict(phase="kernel", kernel="spmv", cases=1, max_abs_err=err,
@@ -525,8 +606,14 @@ def phase_kernel_timing(dev, batch) -> dict:
     nbytes = 8 * requests + 4 * B + 16 * B
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = OPS_PER_REQUEST * requests / PEAK_SCALAR_OPS_PER_S * 1e3
+    # the serial chain: each request of a trace waits for the last one's
+    # bus_free, so the longest trace takes at least its requests times the
+    # chain's dependent operations times their latency
+    longest = int(lengths.max())
+    latency_ms = longest * CHAIN_OPS_PER_REQUEST * CHAIN_OP_CYCLES / SM_CLOCK_HZ * 1e3
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                latency_bound_ms=latency_ms, longest_trace_requests=longest,
                 max_abs_err=err, shape=[B, L], requests=requests)
 
 
@@ -746,23 +833,21 @@ def phase_spmv_timing(args) -> dict:
     from repro_torch.kernels.spmv import spmv_ell, spmv_ell_plain
 
     idx, w, x = args
-    ms = cuda_ms(lambda: spmv_ell(*args), reps=50)
+    csr = ell_to_csr(idx, w, x.shape[0])
+    library = lambda: csr @ x  # noqa: E731
+    t = alternate_ms({"kernel": lambda: spmv_ell(*args), "library": library}, reps=50)
     plain_ms = cuda_ms(lambda: spmv_ell_plain(*args), reps=10)
     got = spmv_ell(*args)
     want = spmv_ell_plain(*args)
-    csr = ell_to_csr(idx, w, x.shape[0])
-    library = lambda: csr @ x  # noqa: E731
-    library_ms = cuda_ms(library, reps=50)
     err = float((got - want).abs().max())
-    check(torch.allclose(got, want, rtol=ACC_RTOL, atol=ACC_ATOL),
-          f"spmv kernel != plain at the largest call: {err}")
+    check(torch.equal(got, want), f"spmv kernel != plain, bit for bit, at the largest call: {err}")
     check(torch.allclose(library(), got, rtol=ACC_RTOL, atol=ACC_ATOL),
           "spmv kernel disagrees with the CSR mat-vec")
     rows, d = idx.shape
     nbytes = 8 * rows * d + 4 * x.numel() + 4 * rows  # idx + w per slot; x in, y out
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = 2 * rows * d / PEAK_SCALAR_OPS_PER_S * 1e3  # f32 mul + add per slot
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(plain_ms=plain_ms, **spread(t),
                 library="torch.sparse_csr_tensor @ x", bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 max_abs_err=err, bit_equal=bool(torch.equal(got, want)),
@@ -992,15 +1077,15 @@ def phase_attention_timing(q, k, v, causal: bool) -> dict:
 
     from repro_torch.kernels.attention import attention_fwd, attention_plain
 
-    ms = cuda_ms(lambda: attention_fwd(q, k, v, causal=causal), reps=20)
+    # the library yardstick, on (B, H, S, D) views of the same tensors
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    t = alternate_ms({"kernel": lambda: attention_fwd(q, k, v, causal=causal),
+                      "library": library}, reps=20)
     plain_ms = cuda_ms(lambda: attention_plain(q, k, v, causal=causal), reps=10)
     got = attention_fwd(q, k, v, causal=causal)
     want = attention_plain(q, k, v, causal=causal)
-    # the library yardstick, on (B, H, S, D) views of the same tensors
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=causal, enable_gqa=True)
-    library_ms = cuda_ms(library, reps=20)
     tol = ATTN_TOL[str(q.dtype).removeprefix("torch.")]
     err = float((got.float() - want.float()).abs().max())
     check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
@@ -1016,13 +1101,42 @@ def phase_attention_timing(q, k, v, causal: bool) -> dict:
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_BF16_OPS_PER_S * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(plain_ms=plain_ms, **spread(t),
                 library="torch.nn.functional.scaled_dot_product_attention"
                         "(is_causal, enable_gqa)",
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 max_abs_err=err, library_max_abs_err=lib_err,
                 shape=[b, s, nq, nkv, hd], dtype=str(q.dtype), flops=flops, bytes=nbytes)
+
+
+def phase_sass(lib: Path) -> dict:
+    """Whether the built attention library's SASS holds ``ATTENTION_SASS``
+    (wgmma and TMA loads), as ``cuobjdump -sass`` shows it.  Without
+    ``cuobjdump`` it says "not checked" and does not pass; with it, a missing
+    opcode fails the run."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump")
+    if tool is None:
+        cand = Path(_build.find_nvcc()).parent / "cuobjdump"
+        tool = str(cand) if cand.exists() else None
+    if tool is None:
+        info = dict(phase="sass", kernel="attention", checked="not checked", passed=False,
+                    reason="cuobjdump not found")
+        emit(info)
+        return info
+    proc = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0, f"cuobjdump -sass failed: {proc.stderr.strip()[-500:]}")
+    counts = {op: proc.stdout.count(op) for op in ATTENTION_SASS}
+    info = dict(phase="sass", kernel="attention", checked=True,
+                passed=all(counts.values()), counts=counts, tool=tool)
+    emit(info)
+    check(info["passed"], f"the attention library's SASS lacks {ATTENTION_SASS}: {counts}")
+    return info
 
 
 def main() -> None:
@@ -1063,6 +1177,8 @@ def main() -> None:
         emit(dict(phase="build", kernel=name, library=str(lib.relative_to(ROOT))
                   if lib.is_relative_to(ROOT) else str(lib),
                   seconds=round(time.perf_counter() - t0, 3)))
+
+    sass = phase_sass(libs["attention"])
 
     # graph generation is set-up, not the path
     graphs = {name: graph_spec(name).build() for name in ("lj", "tiny")}
@@ -1108,7 +1224,8 @@ def main() -> None:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, scenarios=rows, device_pairs=device_rows,
-             serve_golden=serve_golden, serve=serve, kernel_timing=timing),
+             serve_golden=serve_golden, serve=serve, kernel_timing=timing,
+             attention_sass=sass),
         indent=1) + "\n")
 
     replaces = {"dram_timing": "src/repro/kernels/dram_timing/dram_timing.py:120",
@@ -1122,6 +1239,7 @@ def main() -> None:
         ms=timing[name]["ms"], plain_ms=timing[name]["plain_ms"],
         bound_ms=timing[name]["bound_ms"], bound_by=timing[name]["bound_by"],
         library_ms=timing[name].get("library_ms"), shape=timing[name]["shape"],
+        **{key: timing[name][key] for key in EXTRA_KEYS if key in timing[name]},
         card=smi) for name in KERNELS]))
     print(smi, flush=True)
     emit(dict(ok=True, device=dict(platform="gpu", kind=kind,

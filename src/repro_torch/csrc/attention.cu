@@ -10,7 +10,9 @@
 // all f32.  The probabilities are rounded to v's dtype before the PV
 // product (attention.py:61); the sum l keeps them unrounded; the output is
 // acc / max(l, 1e-30), rounded to q's dtype.  Masked scores are -1e30, as
-// in the reference, so a fully masked tile is an exact no-op.
+// in the reference (the bf16 kernel masks with -inf against a running max
+// that starts at -1e30, the same thing), so a fully masked tile is an exact
+// no-op.
 //
 // Layout: q (B, S, nq, D), k and v (B, S, nkv, D), out (B, S, nq, D), all
 // contiguous; the kernel indexes kv head h / (nq / nkv) itself, so the
@@ -25,31 +27,54 @@
 // bounds sit near 15-20 us, so a kernel at the bound must run the tensor
 // cores and stream K/V at full rate.
 //
-// The design is a simple, correct first version, not that kernel.  One
-// thread block owns one (b, h, 64-query tile).  The TPU's sequential kv grid
-// axis becomes a loop inside the block over key tiles, which stops at the
-// diagonal for a causal tile.  Q is staged once and each K/V tile in turn in
-// shared memory.
-//  - bf16 (the serving path): four warps, sixteen query rows each, 64-key
-//    tiles.  QK^T and PV run on the tensor cores as mma.sync m16n8k16 (bf16
-//    in, f32 accumulation) with ldmatrix loads.  Q's fragments, the scores,
-//    m, l and the output accumulator stay in registers; the scores' f32
-//    accumulator layout is that of an A fragment, so P is rounded to bf16
-//    and fed to the PV product without touching shared memory.
-//  - f32: scalar FMAs, since TF32 would miss the reference's 2e-5.  256
-//    threads: a 4 x 2 score micro-tile each, then four threads per query row
-//    for the softmax and PV, each holding D/4 accumulators in registers.
-// Neither pipelines its global loads (no cp.async or TMA: each tile is
-// loaded, then computed, behind a barrier), and mma.sync reaches only part
-// of what wgmma could; those are the next steps toward the bound.
+// bf16 (the serving path): one block per (128-query tile, b, query head),
+// numbered so that the longest causal tiles start first; the TPU's
+// sequential kv grid axis becomes a loop over 128-key tiles that stops at
+// the diagonal.  Two warpgroups of 64 query rows each (wgmma's M), no
+// producer warp: a warp-specialised producer would cap every thread at 168
+// registers (ptxas allocates for the launch, whatever setmaxnreg later
+// moves), and the overlapped loop below needs ~218.
+//  - Loads: one thread issues every TMA.  Q once; K and V tiles into a
+//    three-stage ring, each stage with a K and a V "full" mbarrier (TMA
+//    completes their transactions) and a K and a V "free" mbarrier that
+//    all 256 threads arrive on once their products have read it; the
+//    issuing thread refills a stage when both warpgroups have freed it.
+//    The tensor maps read (B, S, heads, D) in place with a 64- or 128-byte
+//    swizzle (boxes of 64 columns at most: a 128-wide row is two boxes);
+//    rows past S arrive as zeros.
+//  - S = Q K^T is wgmma m64n128k16 with Q's rows in registers (ldmatrix
+//    from the swizzled tile, once) and K from shared memory (K-major).  The
+//    online softmax runs on the accumulator's registers, in place; P,
+//    rounded to bf16, becomes the register A operand of O += P V, wgmma
+//    m64nDk16 with V read from shared memory as an MN-major B.
+//  - Overlap: tile t's scores are issued with tile t - 1's P V product, and
+//    tile t's softmax runs while that product does; the other warpgroup's
+//    products fill the tensor cores around both.
+//  - Output: acc / max(l, 1e-30) in bf16 goes through the warpgroup's own
+//    Q rows in shared memory to a TMA store (rows past S are not written).
+// Softmax in base 2: the scores are scaled by scale * log2(e) inside the
+// exponent's FMA and exponentiated with ex2, the same function to within
+// f32 rounding.  A rescale by alpha == 1 (a row max that did not grow) is
+// skipped, which changes no bit.
+// f32 keeps scalar FMAs (TF32 would miss the reference's 2e-5): 256
+// threads per (b, h, 64-query tile), a 4 x 2 score micro-tile each, then
+// four threads per query row for the softmax and PV.
+//
+// Host side: each instantiation sets its shared-memory limit once per
+// device; the four tensor maps are encoded per call (cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint, so the library needs no -lcuda).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (plain C interface, loaded by ctypes)
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -211,63 +236,52 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   }
 }
 
+
+// Sets a kernel's dynamic shared-memory limit on the current device the
+// first time that device launches it.
+template <typename Kernel>
+int set_smem_limit_once(Kernel kernel, int bytes, std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit && (done.load(std::memory_order_acquire) & bit)) return 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return static_cast<int>(err);
+}
+
 // ---------------------------------------------------------------------------
-// bf16: the same algorithm on the tensor cores (mma.sync m16n8k16)
+// bf16: TMA-fed, wgmma for both products
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int kTcThreads = 128;  // four warps, sixteen query rows each
-constexpr int kTcBK = 64;        // keys per tile
+constexpr int kWgThreads = 128;
+constexpr int kTcThreads = 2 * kWgThreads;  // two warpgroups, 64 query rows each
+constexpr int kTcBQ = 128;                  // query rows per block
+constexpr int kTcBK = 128;                  // keys per K/V tile
+constexpr int kSmemLimit = 232448;          // bytes of shared memory a block may use
+constexpr int kMaxStages = 3;
 
-// Row stride (bf16) of the staged Q, K and V tiles: 8 bf16 of padding put
-// the eight 16-byte rows an ldmatrix reads in distinct banks.
 template <int D>
-constexpr int kLd = D + 8;
+struct TcLayout {
+  static constexpr int kSwizzle = D * 2 < 128 ? D * 2 : 128;  // bytes of a shared row
+  static constexpr int kCols = kSwizzle / 2;                   // bf16 columns of a TMA box
+  static constexpr int kChunks = D / kCols;                    // boxes across D
+  static constexpr int kQBytes = kTcBQ * D * 2;
+  static constexpr int kTileBytes = kTcBK * D * 2;  // one K or V tile
+  // K/V tiles in flight: as many as fit beside Q, at most kMaxStages
+  static constexpr int kFit = (kSmemLimit - 1024 - 256 - kQBytes) / (2 * kTileBytes);
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  // Q, then per stage K and V; each chunk of kCols columns is a block of
+  // rows x kSwizzle bytes.  +1,024 to align the base for the swizzle.
+  static constexpr int kSmemBytes = kQBytes + kStages * 2 * kTileBytes + 1024;
+};
 
-template <int D>
-constexpr int kTcSmemBytes = (kBQ + 2 * kTcBK) * kLd<D> * 2;
-
-// Copies rows [r0, r0 + rows) of one head (row stride `stride` elements)
-// into a padded shared tile, 16 bytes at a time; rows at or past S are 0.
-template <int D>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long stride,
-                                           int r0, int rows, int S, int tid) {
-  constexpr int kChunks = D / 8;
-  for (int i = tid; i < rows * kChunks; i += kTcThreads) {
-    const int r = i / kChunks, c = (i - r * kChunks) * 8;
-    const int s = r0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S) val = *reinterpret_cast<const uint4*>(src + s * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * kLd<D> + c) = val;
-  }
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8.  Without .trans lane t receives row t / 4,
-// columns 2 (t % 4) and 2 (t % 4) + 1 of each; with .trans the transpose.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major); f32 accumulation.
-// Lane t = 4 g + i holds a = {(g, 2i..2i+1), (g+8, 2i..), (g, 2i+8..),
-// (g+8, 2i+8..)}, b = {(k 2i..2i+1, n g), (k 2i+8.., n g)} and
-// d = {(g, 2i), (g, 2i+1), (g+8, 2i), (g+8, 2i+1)}.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -275,152 +289,311 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kTcThreads)
-attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                          int S, int nq, int nkv, float scale) {
-  constexpr int LD = kLd<D>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][LD]
-  bf16* sK = sQ + kBQ * LD;                      // [kTcBK][LD]
-  bf16* sV = sK + kTcBK * LD;                    // [kTcBK][LD]
+// d (+)= A B, A (64 x 16) in registers, B (16 x N) in shared memory,
+// K-major (kTransB 0: K rows for Q K^T) or MN-major (1: V for P V)
+template <int N, int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 32) hopper::wgmma_rs_n32<kTransB>(d, a, db, scale_d);
+  else if constexpr (N == 64) hopper::wgmma_rs_n64<kTransB>(d, a, db, scale_d);
+  else hopper::wgmma_rs_n128<kTransB>(d, a, db, scale_d);
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
-  const int bh = blockIdx.y;
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kTcThreads, 1)
+attention_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap to,
+                          int S, int nq, int nkv, float scale_log2) {
+  using namespace hopper;
+  using L = TcLayout<D>;
+  constexpr int SW = L::kSwizzle;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  // q; per stage: K full, V full, K free, V free
+  __shared__ __align__(8) uint64_t bars[1 + 4 * kMaxStages];
+
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  auto sK = [&](int s) { return sQ + L::kQBytes + s * 2 * L::kTileBytes; };
+  auto sV = [&](int s) { return sK(s) + L::kTileBytes; };
+  const uint32_t bar_q = smem_u32(&bars[0]);
+  auto bar_k = [&](int s) { return smem_u32(&bars[1 + s]); };
+  auto bar_v = [&](int s) { return smem_u32(&bars[1 + kStages + s]); };
+  auto bar_kfree = [&](int s) { return smem_u32(&bars[1 + 2 * kStages + s]); };
+  auto bar_vfree = [&](int s) { return smem_u32(&bars[1 + 3 * kStages + s]); };
+
+  // one block per (query tile, b, h); blocks start in order of their index,
+  // so the longest causal tiles (the last query tiles) come first
+  const int n_qt = (S + kTcBQ - 1) / kTcBQ;
+  const int bh = blockIdx.x % (gridDim.x / n_qt);
+  const int qt = n_qt - 1 - blockIdx.x / (gridDim.x / n_qt);
   const int b = bh / nq;
   const int h = bh - b * nq;
   const int hk = h / (nq / nkv);
-  const int q0 = qt * kBQ;
-  const long long q_row = static_cast<long long>(nq) * D;
-  const long long kv_row = static_cast<long long>(nkv) * D;
-  const bf16* qb = q + static_cast<long long>(b) * S * q_row + static_cast<long long>(h) * D;
-  const bf16* kb = k + static_cast<long long>(b) * S * kv_row + static_cast<long long>(hk) * D;
-  const bf16* vb = v + static_cast<long long>(b) * S * kv_row + static_cast<long long>(hk) * D;
-  bf16* ob = o + static_cast<long long>(b) * S * q_row + static_cast<long long>(h) * D;
+  const int q0 = qt * kTcBQ;
+  const int k_end = kCausal ? min(S, q0 + kTcBQ) : S;
+  const int n_tiles = (k_end + kTcBK - 1) / kTcBK;
+  const int wg = threadIdx.x / kWgThreads, tid = threadIdx.x % kWgThreads;
+  const bool issuer = threadIdx.x == 0;  // the one thread that issues TMA
 
-  // fragment roles: g = lane / 4 picks the rows (g, g + 8) of this warp's
-  // sixteen, i = lane % 4 the column pair; an ldmatrix lane addresses row
-  // lane % 8 of matrix lane / 8
-  const int g = lane >> 2, i2 = (lane & 3) * 2;
-  const int lr = lane & 7, lm = lane >> 3;
+  // K and V of tile t into stage t % kStages, once the stage is free
+  auto load_kv = [&](int t) {
+    const int s = t % kStages;
+    mbar_arrive_expect_tx(bar_k(s), L::kTileBytes);
+    for (int c = 0; c < L::kChunks; ++c)
+      tma_load_4d(sK(s) + c * kTcBK * SW, &tk, bar_k(s), c * L::kCols, hk, t * kTcBK, b);
+    mbar_arrive_expect_tx(bar_v(s), L::kTileBytes);
+    for (int c = 0; c < L::kChunks; ++c)
+      tma_load_4d(sV(s) + c * kTcBK * SW, &tv, bar_v(s), c * L::kCols, hk, t * kTcBK, b);
+  };
 
-  stage_rows<D>(sQ, qb, q_row, q0, kBQ, S, tid);
+  if (issuer) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k(s), 1);
+      mbar_init(bar_v(s), 1);
+      mbar_init(bar_kfree(s), kTcThreads);
+      mbar_init(bar_vfree(s), kTcThreads);
+    }
+    fence_barrier_init();
+    mbar_arrive_expect_tx(bar_q, L::kQBytes);
+    for (int c = 0; c < L::kChunks; ++c)
+      tma_load_4d(sQ + c * kTcBQ * SW, &tq, bar_q, c * L::kCols, h, q0, b);
+    for (int t = 0; t < kStages && t < n_tiles; ++t) load_kv(t);
+  }
   __syncthreads();
-  uint32_t qa[D / 16][4];  // this warp's Q as A fragments, for every tile
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(qa[kk], sQ + (warp * 16 + (lm & 1) * 8 + lr) * LD + kk * 16 + (lm >> 1) * 8);
 
-  float acc[D / 8][4];  // output accumulator: rows g, g + 8; columns 8n + i2 + {0, 1}
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.0f, 0.0f};  // this lane's share of the row sums
-  const int qrow = q0 + warp * 16 + g;
+  // warpgroup wg: query rows q0 + 64 wg .. q0 + 64 wg + 63
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r_first = q0 + wg * 64;
+  const int row = r_first + warp * 16 + (lane >> 2);  // this lane's rows: row, row + 8
+  const int col = 2 * (lane & 3);                     // and columns 8 j + col + {0, 1}
+  const uint32_t sQw = sQ + wg * 64 * SW;
 
-  const int k_end = kCausal ? min(S, q0 + kBQ) : S;
-  for (int k0 = 0; k0 < k_end; k0 += kTcBK) {
-    __syncthreads();  // every warp is done with the last K/V tile
-    stage_rows<D>(sK, kb, kv_row, k0, kTcBK, S, tid);
-    stage_rows<D>(sV, vb, kv_row, k0, kTcBK, S, tid);
-    __syncthreads();
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};  // running max, in units of scale * log2(e)
+  float l[2] = {0.0f, 0.0f};        // this lane's share of the row sums
+  float alpha[2];                   // the factor the output rows are rescaled by
+  float sc[kTcBK / 2];              // scores of one tile, unscaled, then P in f32
+  uint32_t pa[kTcBK / 16][4];       // P of one tile as A operands, in v's dtype
+  uint32_t qa[D / 16][4];           // this warpgroup's Q rows as A operands
 
-    // scores S = Q K^T: eight n-tiles of eight keys
-    float sc[kTcBK / 8][4];
+  // S = Q K^T of tile t into sc, over D in steps of 16 (issued, not waited)
+  auto issue_qk = [&](int t) {
+    const int s = t % kStages;
+    mbar_wait(bar_k(s), (t / kStages) & 1);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kTcBK / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16 / L::kCols;
+      const uint32_t off = (kk * 16 % L::kCols) * 2;
+      wgmma_rs<kTcBK, 0>(sc, qa[kk], make_desc<SW>(sK(s) + c * kTcBK * SW + off, 16, 8 * SW),
+                         kk);
+    }
+    wgmma_commit();
+  };
+  // O += P V of tile t over its keys in steps of 16 (issued, not waited)
+  auto issue_pv = [&](int t) {
+    const int s = t % kStages;
+    mbar_wait(bar_v(s), (t / kStages) & 1);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < kTcBK / 16; ++kk)
+      wgmma_rs<D, 1>(acc, pa[kk], make_desc<SW>(sV(s) + kk * 16 * SW, kTcBK * SW, 8 * SW), 1);
+    wgmma_commit();
+  };
+  // online softmax of tile t's scores for rows row and row + 8 (a row's
+  // four lanes are adjacent), in place: sc becomes P in f32; updates m, l
+  // and alpha
+  auto softmax = [&](int t) {
+    const int k0 = t * kTcBK;
+    if (k0 + kTcBK > S || (kCausal && k0 + kTcBK - 1 > r_first)) {
 #pragma unroll
-      for (int j = 0; j < kTcBK / 8; j += 2) {
-        uint32_t kf[4];  // B fragments of key tiles j and j + 1
-        ldmatrix_x4(kf, sK + ((j + (lm >> 1)) * 8 + lr) * LD + kk * 16 + (lm & 1) * 8);
-        mma_16816(sc[j], qa[kk], kf[0], kf[1]);
-        mma_16816(sc[j + 1], qa[kk], kf[2], kf[3]);
+      for (int i = 0; i < kTcBK / 2; ++i) {
+        const int key = k0 + 8 * (i >> 2) + col + (i & 1);
+        if (key >= S || (kCausal && key > row + 8 * ((i >> 1) & 1))) sc[i] = -INFINITY;
       }
-
-    // online softmax of rows g and g + 8 (a row's four lanes are adjacent)
-    float mc[2] = {kNegInf, kNegInf};
+    }
+    float mc[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < kTcBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, key = k0 + j * 8 + i2 + (e & 1);
-        float x = sc[j][e] * scale;
-        if (key >= S || (kCausal && key > qrow + 8 * r)) x = kNegInf;
-        sc[j][e] = x;
-        mc[r] = fmaxf(mc[r], x);
-      }
-    float alpha[2];
+    for (int i = 0; i < kTcBK / 2; ++i) mc[(i >> 1) & 1] = fmaxf(mc[(i >> 1) & 1], sc[i]);
+    float neg_m[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mc[r] = fmaxf(mc[r], __shfl_xor_sync(0xffffffffu, mc[r], 1));
       mc[r] = fmaxf(mc[r], __shfl_xor_sync(0xffffffffu, mc[r], 2));
-      const float m_new = fmaxf(m[r], mc[r]);
-      alpha[r] = expf(m[r] - m_new);
+      const float m_new = fmaxf(m[r], mc[r] * scale_log2);
+      alpha[r] = ex2(m[r] - m_new);
       m[r] = m_new;
+      neg_m[r] = -m_new;
       l[r] *= alpha[r];
     }
-    uint32_t pa[kTcBK / 16][4];  // P as A fragments, rounded to v's dtype
+#pragma unroll
+    for (int i = 0; i < kTcBK / 2; ++i) {
+      sc[i] = ex2(fmaf(sc[i], scale_log2, neg_m[(i >> 1) & 1]));
+      l[(i >> 1) & 1] += sc[i];
+    }
+  };
+  // P (f32, in sc) rounded to v's dtype into the A operands
+  auto pack_p = [&] {
 #pragma unroll
     for (int j = 0; j < kTcBK / 8; ++j) {
-      const float p0 = expf(sc[j][0] - m[0]), p1 = expf(sc[j][1] - m[0]);
-      const float p2 = expf(sc[j][2] - m[1]), p3 = expf(sc[j][3] - m[1]);
-      l[0] += p0 + p1;
-      l[1] += p2 + p3;
-      pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
-      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
     }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
+  };
+  // the issuer refills the stage of tile t once both warpgroups freed it
+  auto refill = [&](int t) {
+    if (issuer && t + kStages < n_tiles) {
+      const int s = t % kStages;
+      mbar_wait(bar_kfree(s), (t / kStages) & 1);
+      mbar_wait(bar_vfree(s), (t / kStages) & 1);
+      load_kv(t + kStages);
     }
+  };
 
-    // O += P V: V's B fragments through the transposing ldmatrix
+  // Q's rows as A operands, once: warp w holds rows 16 w .. 16 w + 15; an
+  // ldmatrix lane addresses row l % 8 of matrix l / 8 (8 rows on for odd
+  // matrices, 8 columns on for the last two)
+  mbar_wait(bar_q, 0);
 #pragma unroll
-    for (int kk = 0; kk < kTcBK / 16; ++kk)
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t vf[4];  // B fragments of column tiles n and n + 1
-        ldmatrix_x4_trans(vf, sV + (kk * 16 + (lm & 1) * 8 + lr) * LD + (n + (lm >> 1)) * 8);
-        mma_16816(acc[n], pa[kk], vf[0], vf[1]);
-        mma_16816(acc[n + 1], pa[kk], vf[2], vf[3]);
-      }
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int mi = lane >> 3;
+    const int qrow = warp * 16 + (mi & 1) * 8 + (lane & 7);
+    const int qcol = kk * 16 + (mi >> 1) * 8;
+    ldmatrix_x4(qa[kk], sQw + (qcol / L::kCols) * kTcBQ * SW +
+                            swizzle<SW>(qrow * SW + (qcol % L::kCols) * 2));
   }
 
+  // Tile t's scores and softmax overlap tile t - 1's P V product.  The A
+  // operands and the output rows are rewritten only while no product is in
+  // flight; the register fences keep the compiler from reading sc or acc
+  // before the wait that completes the product writing them, or sinking
+  // their writes past the fence of the next products.
+  issue_qk(0);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  mbar_arrive(bar_kfree(0));
+  softmax(0);  // acc is 0: no rescale
+  pack_p();
+  fence_regs(pa);
+  for (int t = 1; t < n_tiles; ++t) {
+    issue_qk(t);
+    issue_pv(t - 1);
+    wgmma_wait<1>();  // S of tile t is done; P V of tile t - 1 may still run
+    fence_regs(sc);
+    mbar_arrive(bar_kfree(t % kStages));
+    softmax(t);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(bar_vfree((t - 1) % kStages));
+    refill(t - 1);
+    // alpha is exactly 1 where a row's max did not grow: skip the no-op
+    if (__any_sync(0xffffffffu, alpha[0] != 1.0f || alpha[1] != 1.0f)) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    }
+    pack_p();
+    fence_regs(acc);
+    fence_regs(pa);
+  }
+  issue_pv(n_tiles - 1);
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // The output rows: acc / max(l, 1e-30) in bf16, written into this
+  // warpgroup's own Q rows (read only into qa) in the output map's swizzled
+  // layout, then stored by one TMA per column chunk; rows past S are
+  // outside the map and not written.
+  const int lr = warp * 16 + (lane >> 2);  // this lane's first row of the 64
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float sum = l[r];
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const int row = qrow + 8 * r;
-    if (row < S) {
-      const float den = fmaxf(sum, 1e-30f);
-      bf16* orow = ob + row * q_row + i2;
+    const float inv = __frcp_rn(fmaxf(sum, 1e-30f));
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
-            __floats2bfloat162_rn(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + col;
+      const uint32_t at = sQw + (c / L::kCols) * kTcBQ * SW +
+                          swizzle<SW>((lr + 8 * r) * SW + (c % L::kCols) * 2);
+      const uint32_t v = pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+      asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(at), "r"(v) : "memory");
     }
   }
+  fence_proxy_async();
+  if (wg == 0) named_barrier_sync<1, kWgThreads>();
+  else named_barrier_sync<2, kWgThreads>();
+  if (tid == 0) {
+    for (int c = 0; c < L::kChunks; ++c)
+      tma_store_4d(&to, sQw + c * kTcBQ * SW, c * L::kCols, h, r_first, b);
+    bulk_commit();
+    bulk_wait_read();
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, looked up once through the runtime.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A map over a contiguous (B, S, heads, D) bf16 tensor, read in boxes of
+// (rows tokens, one head, kCols columns); rows past S read as zeros.
+template <int D>
+bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads, int rows) {
+  using L = TcLayout<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(heads) * D * 2;
+  const cuuint64_t strides[3] = {D * 2, row_bytes, row_bytes * S};  // bytes, dims 1..3
+  const cuuint32_t box[4] = {L::kCols, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                L::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D, bool kCausal>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S,
               int nq, int nkv, float scale, cudaStream_t stream) {
+  using L = TcLayout<D>;
   auto kernel = attention_fwd_bf16_kernel<D, kCausal>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmemBytes<D>);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBQ - 1) / kBQ, B * nq);
-  kernel<<<grid, kTcThreads, kTcSmemBytes<D>, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), S, nq, nkv, scale);
+  static std::atomic<uint64_t> limit_set{0};
+  const int err = set_smem_limit_once(kernel, L::kSmemBytes, limit_set);
+  if (err != 0) return err;
+  CUtensorMap tq, tk, tv, to;
+  if (!make_map<D>(&tq, q, B, S, nq, kTcBQ) || !make_map<D>(&tk, k, B, S, nkv, kTcBK) ||
+      !make_map<D>(&tv, v, B, S, nkv, kTcBK) || !make_map<D>(&to, o, B, S, nq, kTcBQ / 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = static_cast<long long>((S + kTcBQ - 1) / kTcBQ) * B * nq;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), kTcThreads, L::kSmemBytes, stream>>>(
+      tq, tk, tv, to, S, nq, nkv, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -431,9 +604,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
     return launch_tc<D, kCausal>(q, k, v, o, B, S, nq, nkv, scale, stream);
   } else {
     auto kernel = attention_fwd_f32_kernel<D, kCausal>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::kBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    static std::atomic<uint64_t> limit_set{0};
+    const int err = set_smem_limit_once(kernel, Smem<D>::kBytes, limit_set);
+    if (err != 0) return err;
     const dim3 grid((S + kBQ - 1) / kBQ, B * nq);
     kernel<<<grid, kThreads, Smem<D>::kBytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),

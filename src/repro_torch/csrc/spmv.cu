@@ -10,41 +10,143 @@
 // (8 B), x is read once (4 B per vertex) and y written once (4 B per row),
 // over 3.35 TB/s.  On the paper graph lj the layout is 75,008 x 31 (largest
 // in-degree 31, mean 11.9), about 18.6 MB of idx + w: ~6 us.  x (300 KB)
-// stays in the 50 MB L2, so the gathers x[idx] are L2 traffic.  With that
-// little padding there is no need for a CSR or hybrid layout yet.
+// stays in the 50 MB L2, so the gathers x[idx] are L2 traffic.
 //
-// Design, simple and right first: one thread per row walks d = 0..D-1 in
-// order with __fmul_rn / __fadd_rn, so no contraction into an FMA changes
-// a rounding.  The plain version (kernels/spmv/spmv.py::spmv_ell_plain)
-// sums in the same column order with the same roundings, so the two are
-// equal bit for bit.  The reference's jnp.sum adds each row in tree order,
-// so against the reference the result is allclose, not equal.
+// Design: one block of 128 threads per tile of 128 rows, one row a thread.
+//  - Loads (rows of at most 32 columns, as on lj).  The row-major layout
+//    puts a tile's rows next to each other: the tile is one contiguous,
+//    16-byte-aligned run of 128 * D words per array, which the block reads
+//    with coalesced 16-byte loads (all of a thread's issued before it stores
+//    any) and stages in dynamic shared memory.  There a row has an odd
+//    stride (D, or D + 1 when D is even), so the threads' reads of their
+//    own rows hit distinct banks.
+//  - Gathers.  Each thread issues all of its row's gathers x[idx] before it
+//    sums any of them (a 32-wide register array, unrolled, each slot
+//    predicated on D), so up to 32 L2 reads per thread are in flight.
+//  - Wider rows (the general path): a row of 33 or more columns is 132 or
+//    more contiguous bytes, so its thread reads it directly, whole sectors
+//    at a time, eight columns of loads and gathers ahead of the sums, with
+//    no shared memory taken from the L1 that holds those lines.
+//  - Order.  Each row is summed in column order d = 0..D-1 with
+//    __fmul_rn / __fadd_rn, so no contraction into an FMA changes a
+//    rounding.  The plain version (kernels/spmv/spmv.py::spmv_ell_plain)
+//    sums in the same order with the same roundings, so the two are equal
+//    bit for bit.  The reference's jnp.sum adds each row in tree order, so
+//    against the reference the result is allclose, not equal.
+// idx and w must start on a 16-byte boundary (the wrapper checks).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (plain C interface, loaded by ctypes)
 
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;  // grid-stride: 16 blocks per SM
+constexpr int kRows = 128;   // rows per block, one per thread
+constexpr int kTileCols = 32;  // rows up to this wide are staged as a whole tile
+constexpr int kVecs = kTileCols / 4;  // 16-byte loads of a thread per array and tile
+constexpr int kChunk = 8;    // columns a wide row's thread loads ahead
 
-__global__ void __launch_bounds__(kThreads)
+// The tile's nr rows of idx and of w's bits (D <= kTileCols words a row)
+// into si / sw[row * stride + col].  The tile is one contiguous run of
+// nr * D words per array, and r0 * D is a multiple of 128, so the runs
+// start 16-byte aligned; every thread issues all its loads before it
+// stores any.
+__device__ __forceinline__ void stage_tile(int* si, int* sw, const int* __restrict__ idx,
+                                           const int* __restrict__ w, long long r0, int nr,
+                                           int D, int stride) {
+  const int4* ri = reinterpret_cast<const int4*>(idx + r0 * D);
+  const int4* rw = reinterpret_cast<const int4*>(w + r0 * D);
+  const int words = nr * D;
+  const int vecs = words / 4;
+  int4 vi[kVecs], vw[kVecs];
+#pragma unroll
+  for (int u = 0; u < kVecs; ++u) {
+    const int i = threadIdx.x + u * kRows;
+    if (i < vecs) {
+      vi[u] = ri[i];
+      vw[u] = rw[i];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kVecs; ++u) {
+    const int i = threadIdx.x + u * kRows;
+    if (i < vecs) {
+      const int a[4] = {vi[u].x, vi[u].y, vi[u].z, vi[u].w};
+      const int b[4] = {vw[u].x, vw[u].y, vw[u].z, vw[u].w};
+      int row = (4 * i) / D, col = 4 * i - row * D;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        si[row * stride + col] = a[e];
+        sw[row * stride + col] = b[e];
+        if (++col == D) {
+          col = 0;
+          ++row;
+        }
+      }
+    }
+  }
+  for (int i = 4 * vecs + threadIdx.x; i < words; i += kRows) {
+    const int row = i / D;
+    si[row * stride + (i - row * D)] = idx[r0 * D + i];
+    sw[row * stride + (i - row * D)] = w[r0 * D + i];
+  }
+}
+
+__global__ void __launch_bounds__(kRows)
 spmv_ell_kernel(const int* __restrict__ idx, const float* __restrict__ w,
                 const float* __restrict__ x, float* __restrict__ y,
                 long long rows, int D) {
-  for (long long r = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       r < rows; r += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int* ir = idx + r * D;
-    const float* wr = w + r * D;
+  // a staged tile (rows of at most kTileCols): idx, then w's bits, each
+  // kRows rows of (D | 1) words; no shared memory for wider rows, so they
+  // keep the whole L1 for their lines
+  extern __shared__ int smem[];
+  const int me = threadIdx.x;
+  const int stride = D | 1;  // odd: a thread's row lands on its own banks
+  int* s_idx = smem;
+  int* s_w = smem + kRows * stride;
+  const long long tiles = (rows + kRows - 1) / kRows;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long r0 = t * kRows;
+    const int nr = static_cast<int>(rows - r0 < kRows ? rows - r0 : kRows);
     float acc = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const int c = ir[d];
-      const float g = c >= 0 ? x[c] : 0.0f;
-      acc = __fadd_rn(acc, __fmul_rn(wr[d], g));
+    if (D <= kTileCols) {
+      __syncthreads();  // the last tile's readers are done
+      stage_tile(s_idx, s_w, idx, reinterpret_cast<const int*>(w), r0, nr, D, stride);
+      __syncthreads();
+      if (me < nr) {
+        float g[kTileCols];
+#pragma unroll
+        for (int c = 0; c < kTileCols; ++c) {
+          const int col = c < D ? s_idx[me * stride + c] : -1;
+          g[c] = col >= 0 ? x[col] : 0.0f;
+        }
+#pragma unroll
+        for (int c = 0; c < kTileCols; ++c)
+          if (c < D) acc = __fadd_rn(acc, __fmul_rn(__int_as_float(s_w[me * stride + c]), g[c]));
+      }
+    } else if (me < nr) {
+      // a wide row (>= 132 bytes a thread) is read by its thread directly,
+      // kChunk columns of loads and gathers ahead of the sums
+      const int* ir = idx + (r0 + me) * D;
+      const float* wr = w + (r0 + me) * D;
+      for (int c0 = 0; c0 < D; c0 += kChunk) {
+        int col[kChunk];
+        float wv[kChunk], g[kChunk];
+#pragma unroll
+        for (int u = 0; u < kChunk; ++u) {
+          col[u] = c0 + u < D ? ir[c0 + u] : -1;
+          wv[u] = c0 + u < D ? wr[c0 + u] : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < kChunk; ++u) g[u] = col[u] >= 0 ? x[col[u]] : 0.0f;
+#pragma unroll
+        for (int u = 0; u < kChunk; ++u)
+          if (c0 + u < D) acc = __fadd_rn(acc, __fmul_rn(wv[u], g[u]));
+      }
     }
-    y[r] = acc;
+    if (me < nr) y[r0 + me] = acc;
   }
 }
 
@@ -53,10 +155,13 @@ spmv_ell_kernel(const int* __restrict__ idx, const float* __restrict__ w,
 extern "C" int spmv_ell_launch(const void* idx, const void* w, const void* x,
                                void* y, long long rows, int D, void* stream) {
   if (rows <= 0) return 0;
-  if (D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long b = (rows + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(b < kMaxBlocks ? b : kMaxBlocks);
-  spmv_ell_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (D <= 0 || (reinterpret_cast<uintptr_t>(idx) | reinterpret_cast<uintptr_t>(w)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (rows + kRows - 1) / kRows;
+  constexpr long long kMaxBlocks = 132 * 8;  // tiles past this loop in the block
+  const int blocks = static_cast<int>(tiles < kMaxBlocks ? tiles : kMaxBlocks);
+  const size_t smem = D <= kTileCols ? 2 * sizeof(int) * kRows * (D | 1) : 0;
+  spmv_ell_kernel<<<blocks, kRows, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(idx), static_cast<const float*>(w),
       static_cast<const float*>(x), static_cast<float*>(y), rows, D);
   return static_cast<int>(cudaGetLastError());

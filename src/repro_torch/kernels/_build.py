@@ -3,14 +3,17 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes``.  Libraries go to
 ``build/repro_torch/`` at the repository root, named by the sha256 of the
-source, so an edited source rebuilds and an unchanged one loads from disk.
-A missing ``nvcc`` raises: there is no fallback to the plain versions.
+source, of every local header it includes (``#include "x.cuh"``, followed
+recursively) and of the nvcc flags, so an edited source, header or flag
+rebuilds and an unchanged one loads from disk.  A missing ``nvcc`` raises:
+there is no fallback to the plain versions.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -19,6 +22,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -36,10 +40,29 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every header it includes with quotes, directly
+    or through another header, that lies beside the including file (a
+    quoted include found only on an ``-I`` path is the flags' business)."""
+    found: list[Path] = []
+    todo = [(CSRC / f"{name}.cu").resolve()]
+    while todo:
+        path = todo.pop()
+        if path in found or (found and not path.is_file()):
+            continue
+        found.append(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            todo.append((path.parent / inc.decode()).resolve())
+    return found
+
+
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str, verbose: bool = False) -> Path:

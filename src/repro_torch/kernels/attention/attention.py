@@ -7,8 +7,8 @@ head h reads kv head ``h // (nq // nkv)``) and returns
 CUDA tensor it launches the hand-written kernel ``csrc/attention.cu`` (the
 port of ``repro/kernels/attention/attention.py::flash_attention_pallas``)
 or raises; on a CPU tensor it takes ``attention_plain``.  The kernel takes
-f32 (scalar FMAs) and bf16 (tensor cores), head_dim 32, 64 and 128, and
-any S.
+f32 (scalar FMAs) and bf16 (wgmma, fed by TMA), head_dim 32, 64 and 128,
+and any S.
 """
 from __future__ import annotations
 
@@ -54,6 +54,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
+def _check_alignment(name: str, t: torch.Tensor) -> None:
+    """Raises unless ``t`` is laid out as the bf16 kernel's TMA tensor maps
+    take it: a 16-byte-aligned base, a unit innermost stride and every other
+    stride a multiple of 16 bytes.  The f32 kernel is held to the same."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+    size = t.element_size()
+    if t.stride(-1) != 1 or any(st * size % 16 for st in t.stride()[:-1]):
+        raise ValueError(f"{name}'s strides {t.stride()} (elements of {size} bytes) "
+                         f"must be multiples of 16 bytes, the innermost 1")
+
+
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
     """Attention of ``(B, S, nq, hd)`` queries over ``(B, S, nkv, hd)`` keys
@@ -73,16 +85,18 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:  # the kernel stages rows 16 bytes at a time
-            raise ValueError(f"{name} must start on a 16-byte boundary")
+        _check_alignment(name, t)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = _kernel_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                           b, s, nq, k.shape[2], hd, _DTYPE_CODE[q.dtype], int(causal),
-                           1.0 / hd ** 0.5, stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, nq,
+            k.shape[2], hd, _DTYPE_CODE[q.dtype], int(causal), 1.0 / hd ** 0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if q.device.index == torch.cuda.current_device():
+        err = _kernel_fn()(*args)
+    else:
+        with torch.cuda.device(q.device):
+            err = _kernel_fn()(*args)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
     LAUNCHES["attention"] += 1

@@ -81,14 +81,20 @@ def spmv_ell(idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor) -> torch.Tenso
         return spmv_ell_plain(idx, w, x)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    for name, t in (("idx", idx), ("w", w)):
+        if t.data_ptr() % 16:  # the kernel reads a tile's rows 16 bytes at a time
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     rows, d = idx.shape
     y = torch.empty(rows, dtype=torch.float32, device=x.device)
     if rows == 0:
         return y
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = _kernel_fn()(idx.data_ptr(), w.data_ptr(), x.data_ptr(), y.data_ptr(),
-                           rows, d, stream)
+    args = (idx.data_ptr(), w.data_ptr(), x.data_ptr(), y.data_ptr(), rows, d,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if x.device.index == torch.cuda.current_device():
+        err = _kernel_fn()(*args)
+    else:
+        with torch.cuda.device(x.device):
+            err = _kernel_fn()(*args)
     if err != 0:
         raise RuntimeError(f"spmv kernel launch failed: CUDA error {err}")
     LAUNCHES["spmv"] += 1

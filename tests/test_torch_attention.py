@@ -20,6 +20,7 @@ from repro.models.attention import _sdpa as ref_sdpa
 from repro.models.attention import causal_mask as ref_causal_mask
 from repro_torch.kernels import _platform
 from repro_torch.kernels.attention import attention_plain, flash_attention
+from repro_torch.kernels.attention.attention import _check_alignment
 from repro_torch.models.attention import _sdpa, causal_mask
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -85,6 +86,33 @@ def test_wrapper_checks_shapes_and_types():
         attention_plain(q, k.double(), v.double())
     with pytest.raises(ValueError):
         attention_plain(q, k[:, :32], v[:, :32])
+
+
+def _bf16_view(size, stride, offset=0):
+    base = torch.zeros(1 << 16, dtype=torch.bfloat16)
+    return torch.as_strided(base, size, stride, offset)
+
+
+@pytest.mark.parametrize("size, stride", [
+    ((2, 8, 2, 64), (1024, 128, 64, 1)),  # contiguous, hd 64
+    ((1, 4, 4, 32), (512, 128, 32, 1)),   # contiguous, hd 32
+    ((2, 8, 2, 64), (2048, 256, 64, 1)),  # every 16th token of a 2x longer buffer
+], ids=["hd64", "hd32", "token-stride"])
+def test_alignment_check_takes_what_tma_takes(size, stride):
+    _check_alignment("q", _bf16_view(size, stride))
+
+
+@pytest.mark.parametrize("size, stride, offset, match", [
+    ((2, 8, 2, 64), (1024, 128, 64, 1), 1, "16-byte boundary"),     # base 2 bytes off
+    ((2, 8, 2, 64), (1040, 130, 65, 1), 0, "multiples of 16 bytes"),  # 130-byte heads
+    ((2, 8, 2, 60), (960, 120, 60, 1), 0, "multiples of 16 bytes"),  # 120-byte rows
+    ((2, 8, 2, 64), (2048, 256, 128, 2), 0, "innermost 1"),          # strided columns
+], ids=["base", "head-stride", "row-stride", "inner-stride"])
+def test_alignment_check_raises(size, stride, offset, match):
+    """The bf16 kernel's TMA maps need a 16-byte-aligned base and 16-byte
+    strides; the wrapper raises before the launch where they are not."""
+    with pytest.raises(ValueError, match=match):
+        _check_alignment("q", _bf16_view(size, stride, offset))
 
 
 def test_sdpa_and_causal_mask_match_reference():
