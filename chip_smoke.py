@@ -20,7 +20,8 @@ Phases, one JSON line each on stdout:
               random f32 (+inf sources, src -1 edges, empty segments,
               negative values) and int32 (int32-max sources) inputs, and the
               real ``lj`` HitGraph min layout.  SpMV, bit for bit: the real
-              ``lj`` PageRank ELL layout.  Attention, within the
+              ``lj`` PageRank ELL layout (31 wide, the tiled path) and
+              the ``tw`` one (52 wide, the wide-row path).  Attention, within the
               reference's tolerances (2e-5 in f32, 2e-2 in bf16; TF32 is
               off for every matmul): the shape set of
               ``tests/test_kernels.py``, qwen3's heads (16/8, hd 128) at
@@ -66,10 +67,12 @@ Phases, one JSON line each on stdout:
 8. kernels -- one line per ported kernel: launches on its path, its time at
               the path's largest call (CUDA events), its bound, the plain
               version's time and, where one PyTorch call computes the same
-              function, that call's time.  SpMV and attention are timed in
-              turn with their library call over 7 rounds, each round as a
-              replayed CUDA graph (the device time, ``ms``) and back to back
-              from the host (``eager_ms``): median, min and max.
+              function, that call's time.  ``ms`` is the mean of calls
+              back to back from the host (CUDA events), as in every
+              earlier run.  SpMV and attention are timed in turn with their
+              library call over 7 rounds, each round back to back (``ms``)
+              and as a replayed CUDA graph (``graph_ms``, the device time
+              without the host's enqueue): median, min and max.
 
 Any mismatch raises and the exit code is nonzero; without a CUDA card, or
 outside the repository, it exits nonzero before printing any result.  The
@@ -98,13 +101,6 @@ PEAK_SCALAR_OPS_PER_S = 67e12
 # int32 operations per valid request in the state machine's update
 # (compares, max, adds and selects of one step; see csrc/dram_timing.cu).
 OPS_PER_REQUEST = 20
-# The chain from one request's bus_free to the next's in csrc/dram_timing.cu
-# (a conflict: horizon's add and max, t_pre's max, t_act's add and max,
-# new_ready's add, slot_end's max and add), at an assumed 4 cycles of
-# dependent-issue latency each, at the H100 SXM's 1,980 MHz maximum SM clock.
-CHAIN_OPS_PER_REQUEST = 8
-CHAIN_OP_CYCLES = 4
-SM_CLOCK_HZ = 1.98e9
 KERNELS = ("dram_timing", "edge_update", "spmv", "attention")
 # bf16 tensor-core peak (H100 SXM data sheet, dense), the rate of the
 # attention kernel's operations on its bf16 inputs at the serving path
@@ -120,9 +116,9 @@ TIMING_ROUNDS = 7
 # the bf16 attention kernel must run wgmma and load by TMA: SASS opcodes
 ATTENTION_SASS = ("HGMMA", "UTMALDG")
 # keys of a kernel's timing that its line in the kernels JSON carries too
-EXTRA_KEYS = ("latency_bound_ms", "ms_min", "ms_max", "library_ms_min", "library_ms_max", "eager_ms",
-               "eager_ms_min", "eager_ms_max", "eager_library_ms", "eager_library_ms_min",
-               "eager_library_ms_max", "rounds")
+EXTRA_KEYS = ("ms_min", "ms_max", "library_ms_min", "library_ms_max", "graph_ms",
+              "graph_ms_min", "graph_ms_max", "graph_library_ms", "graph_library_ms_min",
+              "graph_library_ms_max", "rounds")
 # acc values of the device engine against the numpy engine: the sums
 # associate in another order than np.add.at (tests/test_semexec.py:58)
 ACC_RTOL, ACC_ATOL = 1e-5, 1e-6
@@ -197,9 +193,9 @@ def graph_ms(fn, reps: int) -> float:
 def alternate_ms(fns: dict, reps: int, rounds: int = TIMING_ROUNDS) -> dict:
     """Times each of ``fns`` in turn, ``rounds`` times over (a, b, a, b, ...),
     so that a drift of the card's clocks reaches all of them alike: each
-    round by a replayed CUDA graph (``graph_ms``, the device time) and back to
-    back from the host (``cuda_ms``, which a short call's enqueue can set).
-    Returns per name the median, min and max of both."""
+    round back to back from the host (``cuda_ms``, which a short call's
+    enqueue can set) and by a replayed CUDA graph (``graph_ms``, the device
+    time).  Returns per name the median, min and max of both."""
     import statistics
 
     times = {name: {"graph": [], "eager": []} for name in fns}
@@ -213,12 +209,13 @@ def alternate_ms(fns: dict, reps: int, rounds: int = TIMING_ROUNDS) -> dict:
 
 
 def spread(t: dict) -> dict:
-    """From ``alternate_ms``'s kernel and library: the graph-timed median
-    (``ms``, ``library_ms``), min and max, and the same back to back
-    (``eager_ms``, ...), with every round."""
+    """From ``alternate_ms``'s kernel and library: the median back to back
+    (``ms``, ``library_ms``, the yardstick of every earlier run), min and
+    max, and the same as a replayed graph (``graph_ms``, ...), with every
+    round."""
     out = dict(rounds=TIMING_ROUNDS)
     for who, key in (("kernel", "ms"), ("library", "library_ms")):
-        for kind, prefix in (("graph", ""), ("eager", "eager_")):
+        for kind, prefix in (("eager", ""), ("graph", "graph_")):
             stats = t[who][kind]
             out[prefix + key] = stats["median"]
             out[prefix + key + "_min"] = stats["min"]
@@ -304,6 +301,15 @@ def phase_kernel_vs_plain(dev, lj_batch) -> int:
     return worst
 
 
+def pr_layout(g, dev) -> dict:
+    """The PageRank accumulation layout of ``g`` with its ELL, as the
+    device path builds it."""
+    from repro_torch.core import semexec
+
+    w_eff = semexec._acc_weight("pr", g.src, None, g.degrees_out)
+    return semexec._acc_layout(g.src, g.dst, w_eff, g.n, dev)
+
+
 def lj_device_layouts(graphs: dict, dev):
     """The real ``lj`` layouts of the device path: HitGraph's bfs min layout
     (every routed edge, as ``semexec.HitGraphDevice`` builds it) and the
@@ -320,8 +326,7 @@ def lj_device_layouts(graphs: dict, dev):
     prep = [HitGraph._partition_prep(g, parts.edge_idx[i], parts.k, ivl, True, False)
             for i in range(parts.k)]
     lay_min = semexec._build_hitgraph_min(g, PROBLEMS["bfs"], prep, parts.k, ivl, dev)
-    w_eff = semexec._acc_weight("pr", g.src, None, g.degrees_out)
-    return lay_min, semexec._acc_layout(g.src, g.dst, w_eff, g.n, dev)
+    return lay_min, pr_layout(g, dev)
 
 
 def phase_edge_update_vs_plain(dev, graphs: dict, lay_min) -> int:
@@ -367,30 +372,35 @@ def phase_edge_update_vs_plain(dev, graphs: dict, lay_min) -> int:
     return 0
 
 
-def phase_spmv_vs_plain(dev, lay_acc, n: int) -> float:
-    """SpMV kernel against plain on the real lj PageRank ELL; returns the
-    max abs error, which should be 0 (same column order and roundings)."""
+def phase_spmv_vs_plain(dev, layouts: dict) -> float:
+    """SpMV kernel against plain on real PageRank ELLs, ``layouts`` by graph
+    name as (layout, n): ``lj``, 31 wide (the tiled path), and ``tw``, 52
+    wide (the wide-row path).  Returns the max abs error, which should be 0
+    (same column order and roundings)."""
     import numpy as np
     import torch
 
     from repro_torch.kernels.spmv import spmv_coo_plain, spmv_ell, spmv_ell_plain
 
-    idx, val = lay_acc["ell"]
-    x = torch.from_numpy(np.random.default_rng(7).random(n).astype(np.float32)).to(dev)
     t0 = time.perf_counter()
-    got = spmv_ell(idx, val, x)
-    want = spmv_ell_plain(idx, val, x)
-    coo = spmv_coo_plain(lay_acc["src"], lay_acc["dst"], lay_acc["w"], x, n)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    check(torch.equal(got, want),
-          f"spmv kernel != plain, bit for bit, on the lj ELL: max abs err {err}")
-    check(torch.allclose(got[:n], coo, rtol=ACC_RTOL, atol=ACC_ATOL),
-          "spmv kernel disagrees with the COO sum on the lj ELL")
-    emit(dict(phase="kernel", kernel="spmv", cases=1, max_abs_err=err,
-              bit_equal=bool(torch.equal(got, want)), ell_shape=list(idx.shape),
-              seconds=round(time.perf_counter() - t0, 3)))
-    return err
+    worst, shapes = 0.0, {}
+    for name, (lay_acc, n) in layouts.items():
+        idx, val = lay_acc["ell"]
+        x = torch.from_numpy(np.random.default_rng(7).random(n).astype(np.float32)).to(dev)
+        got = spmv_ell(idx, val, x)
+        want = spmv_ell_plain(idx, val, x)
+        coo = spmv_coo_plain(lay_acc["src"], lay_acc["dst"], lay_acc["w"], x, n)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want),
+              f"spmv kernel != plain, bit for bit, on the {name} ELL: max abs err {err}")
+        check(torch.allclose(got[:n], coo, rtol=ACC_RTOL, atol=ACC_ATOL),
+              f"spmv kernel disagrees with the COO sum on the {name} ELL")
+        worst = max(worst, err)
+        shapes[name] = list(idx.shape)
+    emit(dict(phase="kernel", kernel="spmv", cases=len(layouts), max_abs_err=worst,
+              bit_equal=True, ell_shapes=shapes, seconds=round(time.perf_counter() - t0, 3)))
+    return worst
 
 
 def tiny_scenarios() -> list[dict]:
@@ -606,14 +616,9 @@ def phase_kernel_timing(dev, batch) -> dict:
     nbytes = 8 * requests + 4 * B + 16 * B
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = OPS_PER_REQUEST * requests / PEAK_SCALAR_OPS_PER_S * 1e3
-    # the serial chain: each request of a trace waits for the last one's
-    # bus_free, so the longest trace takes at least its requests times the
-    # chain's dependent operations times their latency
-    longest = int(lengths.max())
-    latency_ms = longest * CHAIN_OPS_PER_REQUEST * CHAIN_OP_CYCLES / SM_CLOCK_HZ * 1e3
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                latency_bound_ms=latency_ms, longest_trace_requests=longest,
+                longest_trace_requests=int(lengths.max()),
                 max_abs_err=err, shape=[B, L], requests=requests)
 
 
@@ -1181,7 +1186,7 @@ def main() -> None:
     sass = phase_sass(libs["attention"])
 
     # graph generation is set-up, not the path
-    graphs = {name: graph_spec(name).build() for name in ("lj", "tiny")}
+    graphs = {name: graph_spec(name).build() for name in ("lj", "tiny", "tw")}
 
     # 3. kernels vs plain (on the real lj batch and layouts among others)
     pending, _ = prepare(dict(graph="lj", accelerator="hitgraph", problem="bfs",
@@ -1190,9 +1195,11 @@ def main() -> None:
     worst = {"dram_timing": phase_kernel_vs_plain(dev, largest_group(pending))}
     lay_min, lay_acc = lj_device_layouts(graphs, dev)
     worst["edge_update"] = phase_edge_update_vs_plain(dev, graphs, lay_min)
-    worst["spmv"] = phase_spmv_vs_plain(dev, lay_acc, graphs["lj"].n)
+    tw = graphs.pop("tw")  # only for the wide-row SpMV check
+    worst["spmv"] = phase_spmv_vs_plain(dev, {"lj": (lay_acc, graphs["lj"].n),
+                                              "tw": (pr_layout(tw, dev), tw.n)})
     worst["attention"] = phase_attention_vs_plain(dev)
-    del lay_min, lay_acc
+    del lay_min, lay_acc, tw
 
     # 4. main path (numpy semantics)
     rows, info = phase_main(graphs)

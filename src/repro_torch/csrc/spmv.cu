@@ -23,10 +23,14 @@
 //  - Gathers.  Each thread issues all of its row's gathers x[idx] before it
 //    sums any of them (a 32-wide register array, unrolled, each slot
 //    predicated on D), so up to 32 L2 reads per thread are in flight.
-//  - Wider rows (the general path): a row of 33 or more columns is 132 or
-//    more contiguous bytes, so its thread reads it directly, whole sectors
-//    at a time, eight columns of loads and gathers ahead of the sums, with
-//    no shared memory taken from the L1 that holds those lines.
+//  - Wider rows (the general path, 33 columns or more, as on tw, pk, r21):
+//    the tile goes in chunks of 32 columns.  For each chunk, warp w takes
+//    the tile's rows 32w..32w+31 one after another, a lane a column, so a
+//    row's 32 words of idx and of w are one coalesced 128-byte read; the
+//    lane also gathers x[idx] and writes the product w * x[idx] to shared
+//    memory (eight rows of loads and gathers in flight before any product
+//    is stored).  Then each thread adds its row's 32 products in column
+//    order.  Where a product is rounded does not change the sum's order.
 //  - Order.  Each row is summed in column order d = 0..D-1 with
 //    __fmul_rn / __fadd_rn, so no contraction into an FMA changes a
 //    rounding.  The plain version (kernels/spmv/spmv.py::spmv_ell_plain)
@@ -46,7 +50,7 @@ namespace {
 constexpr int kRows = 128;   // rows per block, one per thread
 constexpr int kTileCols = 32;  // rows up to this wide are staged as a whole tile
 constexpr int kVecs = kTileCols / 4;  // 16-byte loads of a thread per array and tile
-constexpr int kChunk = 8;    // columns a wide row's thread loads ahead
+constexpr int kAhead = 8;    // rows of a wide chunk a lane loads ahead
 
 // The tile's nr rows of idx and of w's bits (D <= kTileCols words a row)
 // into si / sw[row * stride + col].  The tile is one contiguous run of
@@ -99,8 +103,8 @@ spmv_ell_kernel(const int* __restrict__ idx, const float* __restrict__ w,
                 const float* __restrict__ x, float* __restrict__ y,
                 long long rows, int D) {
   // a staged tile (rows of at most kTileCols): idx, then w's bits, each
-  // kRows rows of (D | 1) words; no shared memory for wider rows, so they
-  // keep the whole L1 for their lines
+  // kRows rows of (D | 1) words; for wider rows, a chunk's products,
+  // kRows rows of kTileCols + 1 words
   extern __shared__ int smem[];
   const int me = threadIdx.x;
   const int stride = D | 1;  // odd: a thread's row lands on its own banks
@@ -126,24 +130,35 @@ spmv_ell_kernel(const int* __restrict__ idx, const float* __restrict__ w,
         for (int c = 0; c < kTileCols; ++c)
           if (c < D) acc = __fadd_rn(acc, __fmul_rn(__int_as_float(s_w[me * stride + c]), g[c]));
       }
-    } else if (me < nr) {
-      // a wide row (>= 132 bytes a thread) is read by its thread directly,
-      // kChunk columns of loads and gathers ahead of the sums
-      const int* ir = idx + (r0 + me) * D;
-      const float* wr = w + (r0 + me) * D;
-      for (int c0 = 0; c0 < D; c0 += kChunk) {
-        int col[kChunk];
-        float wv[kChunk], g[kChunk];
+    } else {
+      // wide rows: chunks of kTileCols columns, products staged by warps
+      float* s_p = reinterpret_cast<float*>(smem);
+      const int lane = me % 32, warp = me / 32;
+      for (int c0 = 0; c0 < D; c0 += kTileCols) {
+        const int c = c0 + lane;
+        __syncthreads();  // the last chunk's sums are done
+        for (int rb = warp * 32; rb < warp * 32 + 32; rb += kAhead) {
+          int col[kAhead];
+          float wv[kAhead];
 #pragma unroll
-        for (int u = 0; u < kChunk; ++u) {
-          col[u] = c0 + u < D ? ir[c0 + u] : -1;
-          wv[u] = c0 + u < D ? wr[c0 + u] : 0.0f;
+          for (int u = 0; u < kAhead; ++u) {
+            const bool live = rb + u < nr && c < D;
+            const long long at = (r0 + rb + u) * D + c;
+            col[u] = live ? idx[at] : -1;
+            wv[u] = live ? w[at] : 0.0f;
+          }
+          float g[kAhead];
+#pragma unroll
+          for (int u = 0; u < kAhead; ++u) g[u] = col[u] >= 0 ? x[col[u]] : 0.0f;
+#pragma unroll
+          for (int u = 0; u < kAhead; ++u)
+            s_p[(rb + u) * (kTileCols + 1) + lane] = __fmul_rn(wv[u], g[u]);
         }
-#pragma unroll
-        for (int u = 0; u < kChunk; ++u) g[u] = col[u] >= 0 ? x[col[u]] : 0.0f;
-#pragma unroll
-        for (int u = 0; u < kChunk; ++u)
-          if (c0 + u < D) acc = __fadd_rn(acc, __fmul_rn(wv[u], g[u]));
+        __syncthreads();
+        if (me < nr) {
+          const int n = D - c0 < kTileCols ? D - c0 : kTileCols;
+          for (int u = 0; u < n; ++u) acc = __fadd_rn(acc, s_p[me * (kTileCols + 1) + u]);
+        }
       }
     }
     if (me < nr) y[r0 + me] = acc;
@@ -160,7 +175,7 @@ extern "C" int spmv_ell_launch(const void* idx, const void* w, const void* x,
   const long long tiles = (rows + kRows - 1) / kRows;
   constexpr long long kMaxBlocks = 132 * 8;  // tiles past this loop in the block
   const int blocks = static_cast<int>(tiles < kMaxBlocks ? tiles : kMaxBlocks);
-  const size_t smem = D <= kTileCols ? 2 * sizeof(int) * kRows * (D | 1) : 0;
+  const size_t smem = sizeof(int) * kRows * (D <= kTileCols ? 2 * (D | 1) : kTileCols + 1);
   spmv_ell_kernel<<<blocks, kRows, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(idx), static_cast<const float*>(w),
       static_cast<const float*>(x), static_cast<float*>(y), rows, D);

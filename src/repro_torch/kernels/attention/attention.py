@@ -92,11 +92,8 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, nq,
             k.shape[2], hd, _DTYPE_CODE[q.dtype], int(causal), 1.0 / hd ** 0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
-    if q.device.index == torch.cuda.current_device():
+    with torch.cuda.device(q.device):
         err = _kernel_fn()(*args)
-    else:
-        with torch.cuda.device(q.device):
-            err = _kernel_fn()(*args)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
     LAUNCHES["attention"] += 1

@@ -90,11 +90,8 @@ def spmv_ell(idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor) -> torch.Tenso
         return y
     args = (idx.data_ptr(), w.data_ptr(), x.data_ptr(), y.data_ptr(), rows, d,
             torch.cuda.current_stream(x.device).cuda_stream)
-    if x.device.index == torch.cuda.current_device():
+    with torch.cuda.device(x.device):
         err = _kernel_fn()(*args)
-    else:
-        with torch.cuda.device(x.device):
-            err = _kernel_fn()(*args)
     if err != 0:
         raise RuntimeError(f"spmv kernel launch failed: CUDA error {err}")
     LAUNCHES["spmv"] += 1

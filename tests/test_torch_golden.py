@@ -191,7 +191,7 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_port_imports_nothing_of_jax_or_the_reference():
     port = ROOT / "src" / "repro_torch"
-    files = sorted(port.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(port.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
     assert len(files) > 20
     # every CUDA source's Python wrapper and ops, and the device engine
     must_cover = [port / "core" / "semexec.py", port / "core" / "trace.py",
