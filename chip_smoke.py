@@ -15,8 +15,13 @@ Phases, one JSON line each on stdout:
               checked" where the tool is missing, a failure where an opcode is.
 3. kernel  -- each kernel against its plain PyTorch version on the same CUDA
               tensors.  DRAM timing, bit for bit: random [64, 4096] batches
-              for every preset x page policy, and the first 8,192 requests of
-              the real ``lj/hitgraph/bfs`` batch.  Edge update, bit for bit:
+              (-1 banks and -1 rows inside the lengths) for every preset x
+              page policy, each on the matrix path at the wrapper's segment
+              count and at 7, 333 and 5,000 segments (edges at odd places,
+              empty segments) and on the direct walk; 32 banks (the direct
+              walk, past the matrix path); and the first 8,192 requests of
+              the real ``lj/hitgraph/bfs`` batch at 1, 5, 37 and the
+              wrapper's segments.  Edge update, bit for bit:
               random f32 (+inf sources, src -1 edges, empty segments,
               negative values) and int32 (int32-max sources) inputs, and the
               real ``lj`` HitGraph min layout.  SpMV, bit for bit: the real
@@ -34,7 +39,8 @@ Phases, one JSON line each on stdout:
               (written from the JAX reference) and
               ``benchmarks/golden_hashes_tiny.json``; hits/misses/conflicts
               must equal the exact host classifier; BFS values must equal the
-              port's ``reference_solve`` on the card.
+              port's ``reference_solve`` on the card.  Printed: the DRAM
+              timing kernel's CUDA-event ms by length bucket and in all.
 5. main_device -- the ``semexec="device"`` path at full size: all 16
               (accelerator, problem) pairs of ``semexec.SUPPORTED`` on ``lj``,
               each on its accelerator's own DRAM preset, through
@@ -69,7 +75,9 @@ Phases, one JSON line each on stdout:
               version's time and, where one PyTorch call computes the same
               function, that call's time.  ``ms`` is the mean of calls
               back to back from the host (CUDA events), as in every
-              earlier run.  SpMV and attention are timed in turn with their
+              earlier run.  DRAM timing is timed whole at the path's largest
+              call, also as a replayed CUDA graph, with its segment count
+              and the matrix path's own operation count beside the bound.  SpMV and attention are timed in turn with their
               library call over 7 rounds, each round back to back (``ms``)
               and as a replayed CUDA graph (``graph_ms``, the device time
               without the host's enqueue): median, min and max.
@@ -101,6 +109,10 @@ PEAK_SCALAR_OPS_PER_S = 67e12
 # int32 operations per valid request in the state machine's update
 # (compares, max, adds and selects of one step; see csrc/dram_timing.cu).
 OPS_PER_REQUEST = 20
+# int32 operations per request in each column of the matrix path's segment
+# map (horizon: add, max; t_act: add, max, max; row_ready: add; slot_end:
+# max, add; see csrc/dram_timing.cu, kernel 3)
+MATRIX_OPS_PER_COLUMN = 8
 KERNELS = ("dram_timing", "edge_update", "spmv", "attention")
 # bf16 tensor-core peak (H100 SXM data sheet, dense), the rate of the
 # attention kernel's operations on its bf16 inputs at the serving path
@@ -116,7 +128,8 @@ TIMING_ROUNDS = 7
 # the bf16 attention kernel must run wgmma and load by TMA: SASS opcodes
 ATTENTION_SASS = ("HGMMA", "UTMALDG")
 # keys of a kernel's timing that its line in the kernels JSON carries too
-EXTRA_KEYS = ("ms_min", "ms_max", "library_ms_min", "library_ms_max", "graph_ms",
+EXTRA_KEYS = ("segments", "matrix_ops", "matrix_ops_ms", "ms_min", "ms_max",
+              "library_ms_min", "library_ms_max", "graph_ms",
               "graph_ms_min", "graph_ms_max", "graph_library_ms", "graph_library_ms_min",
               "graph_library_ms_max", "rounds")
 # acc values of the device engine against the numpy engine: the sums
@@ -190,6 +203,33 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_us_by_kernel(fn, reps: int) -> dict:
+    """Device microseconds a call of ``fn()`` spends in each CUDA kernel it
+    launches (self device time), by ``torch.profiler`` over ``reps`` calls
+    after a warm-up; keyed by the kernel's function name."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:  # a kernel: its own device time
+            name = re.search(r"(\w+_kernel)", evt.key)
+            key = name.group(1) if name else evt.key
+            out[key] = out.get(key, 0.0) + us / reps
+    return out
+
+
 def alternate_ms(fns: dict, reps: int, rounds: int = TIMING_ROUNDS) -> dict:
     """Times each of ``fns`` in turn, ``rounds`` times over (a, b, a, b, ...),
     so that a drift of the card's clocks reaches all of them alike: each
@@ -244,7 +284,10 @@ def values_sha256(values) -> str:
 
 def phase_kernel_vs_plain(dev, lj_batch) -> int:
     """Kernel == plain on the same CUDA tensors; returns the max abs error
-    (0, or the script has already failed)."""
+    (0, or the script has already failed).  Both of the kernel's paths run:
+    the matrix path (segments chosen by the wrapper, and forced counts whose
+    segment edges fall at odd places, some past every trace's end) and the
+    direct walk (forced, and for 32 banks, past the matrix path)."""
     import dataclasses
 
     import numpy as np
@@ -252,8 +295,10 @@ def phase_kernel_vs_plain(dev, lj_batch) -> int:
 
     from repro_torch.core.dram import dram_config
     from repro_torch.kernels.dram_timing import (
+        MATRIX_BANKS,
         dram_timing_batch,
         dram_timing_batch_plain,
+        plan_segments,
     )
 
     presets = {name: dram_config(name) for name in ("ddr3", "default", "hbm", "hitgraph")}
@@ -261,42 +306,67 @@ def phase_kernel_vs_plain(dev, lj_batch) -> int:
     rng = np.random.default_rng(2024)
     B, L = 64, 4096
     worst = 0
-    cases = 0
+    cases = []
     t0 = time.perf_counter()
 
-    def compare(label, bank, row, lengths, cfg):
+    def compare(label, bank, row, lengths, kw, segment_counts=(None,)):
+        """The kernel at each of ``segment_counts`` (None: the wrapper's
+        choice) against one plain run; returns the outputs and the error."""
         args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                 for a in (bank, row, lengths)]
-        got = dram_timing_batch(*args, **timing_kwargs(cfg))
-        want = dram_timing_batch_plain(*args, **timing_kwargs(cfg))
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        check(torch.equal(got, want), f"kernel != plain on {label}: max err {err}")
-        return got, err
+        want = dram_timing_batch_plain(*args, **kw)
+        err = 0
+        for segments in segment_counts:
+            got = dram_timing_batch(*args, segments=segments, **kw)
+            torch.cuda.synchronize()
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            used = segments or plan_segments(bank.shape[0], bank.shape[1], **{
+                k: kw[k] for k in ("nbanks", "tRCD", "tRP", "tRC", "tBL", "lookahead")})
+            check(torch.equal(got, want),
+                  f"kernel != plain on {label}, {used} segments: max err {err}")
+            cases.append(dict(case=label, segments=used, shape=list(bank.shape)))
+        return want, err
+
+    def random_batch(nbanks):
+        lengths = rng.integers(0, L + 1, size=B).astype(np.int32)
+        lengths[0], lengths[1] = 0, L  # an all-padding row and a full one
+        bank = rng.integers(0, nbanks, size=(B, L)).astype(np.int32)
+        row = rng.integers(0, 6, size=(B, L)).astype(np.int32)
+        live = np.arange(L)[None, :] < lengths[:, None]
+        row[live & (rng.random((B, L)) < 0.05)] = -1  # hit and miss on a closed bank
+        bank[live & (rng.random((B, L)) < 0.02)] = -1  # no-ops inside the lengths
+        bank[~live], row[~live] = -1, 0
+        return bank, row, lengths
 
     for name, base in presets.items():
         for policy in ("open", "closed"):
             cfg = dataclasses.replace(base, page_policy=policy)
-            lengths = rng.integers(0, L + 1, size=B).astype(np.int32)
-            lengths[0], lengths[1] = 0, L  # an all-padding row and a full one
-            bank = rng.integers(0, cfg.nbanks, size=(B, L)).astype(np.int32)
-            row = rng.integers(0, 6, size=(B, L)).astype(np.int32)
-            pad = np.arange(L)[None, :] >= lengths[:, None]
-            bank[pad], row[pad] = -1, 0
-            got, err = compare(f"{name}/{policy}", bank, row, lengths, cfg)
-            check(got[0].tolist() == [cfg.tCL, 0, 0, 0],
+            kw = timing_kwargs(cfg)
+            bank, row, lengths = random_batch(cfg.nbanks)
+            # the wrapper's choice (16 segments), the direct walk, and segment
+            # edges at odd places (4096 / 7 and 4096 / 333 are not multiples
+            # of 32; 5000 segments of one request leave the last 904 past
+            # every trace's end, and more past the shorter ones)
+            want, err = compare(f"{name}/{policy}", bank, row, lengths, kw,
+                                (None, 1, 7, 333, 5000))
+            check(want[0].tolist() == [cfg.tCL, 0, 0, 0],
                   f"all-padding row is not (tCL, 0, 0, 0) on {name}/{policy}")
             worst = max(worst, err)
-            cases += 1
-    # the real main-path batch of lj/hitgraph/bfs, cut to 8,192 requests a row
+    # banks past the matrix path: the direct walk
+    kw = dict(timing_kwargs(presets["default"]), nbanks=2 * MATRIX_BANKS)
+    _, err = compare("default timings, 32 banks", *random_batch(kw["nbanks"]), kw)
+    worst = max(worst, err)
+    # the real main-path batch of lj/hitgraph/bfs (its largest bucket), cut
+    # to 8,192 requests a row, with odd segment counts
     bank, row, lengths, cfg = lj_batch
     cut = 8192
-    _, err = compare("lj/hitgraph/bfs", bank[:, :cut], row[:, :cut],
-                     np.minimum(lengths, cut).astype(np.int32), cfg)
+    kw = timing_kwargs(cfg)
+    _, err = compare("lj/hitgraph/bfs largest bucket, cut", bank[:, :cut], row[:, :cut],
+                     np.minimum(lengths, cut).astype(np.int32), kw, (None, 1, 5, 37))
     worst = max(worst, err)
-    cases += 1
-    emit(dict(phase="kernel", kernel="dram_timing", cases=cases, max_abs_err=worst,
+    emit(dict(phase="kernel", kernel="dram_timing", cases=len(cases), max_abs_err=worst,
               random_shape=[B, L], lj_shape=[int(bank.shape[0]), cut],
+              segment_counts=sorted({c["segments"] for c in cases}),
               seconds=round(time.perf_counter() - t0, 3)))
     return worst
 
@@ -513,13 +583,16 @@ def phase_main(graphs: dict) -> tuple[list[dict], dict]:
     kernel_events: list = []
     launch = engine.dram_timing_batch
 
-    def timed_launch(*args, **kw):
+    by_bucket: dict = {}  # L -> [(start, end, B)] over the whole phase
+
+    def timed_launch(bank, *args, **kw):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = launch(*args, **kw)
+        out = launch(bank, *args, **kw)
         end.record()
         kernel_events.append((start, end))
+        by_bucket.setdefault(int(bank.shape[1]), []).append((start, end, int(bank.shape[0])))
         return out
 
     hostcache.clear_all()  # the main path pays its own semantic half
@@ -581,29 +654,41 @@ def phase_main(graphs: dict) -> tuple[list[dict], dict]:
     check(counts["dram_timing"] == stats["dispatches"],
           f"launches {counts['dram_timing']} != engine dispatches {stats['dispatches']}")
     lj = [r for r in rows if r["key"].startswith("lj/")]
+    # B1's CUDA-event time by length bucket: calls, batch sizes, ms
+    buckets = {L: dict(calls=len(ev), batch_sizes=sorted({b for _, _, b in ev}),
+                       ms=round(sum(s.elapsed_time(e) for s, e, _ in ev), 4))
+               for L, ev in sorted(by_bucket.items())}
     emit(dict(phase="main", scenarios=len(rows), seconds=round(seconds, 3),
               launches=counts["dram_timing"], dispatches=stats["dispatches"],
               traces=stats["traces"], requests=stats["requests"],
               lj_wall_s=round(sum(r["wall_s"] for r in lj), 3),
               lj_host_s=round(sum(r["host_s"] for r in lj), 3),
               lj_kernel_ms=round(sum(r["kernel_ms"] for r in lj), 3),
+              kernel_ms=round(sum(b["ms"] for b in buckets.values()), 3),
+              kernel_ms_by_bucket=buckets,
               largest_bucket=largest[0], largest_key=largest[1]["key"]))
     pending, _ = prepare(largest[1], graphs)
     return rows, dict(counts=counts, batch=largest_group(pending))
 
 
 def phase_kernel_timing(dev, batch) -> dict:
+    """B1 at the path's largest call, whole, against the plain version bit
+    for bit.  ``ms`` is the mean of 20 calls back to back (every PR's
+    yardstick), ``graph_ms`` the same calls as a replayed CUDA graph."""
     import torch
 
     from repro_torch.kernels.dram_timing import (
         dram_timing_batch,
         dram_timing_batch_plain,
+        plan_segments,
     )
 
     bank, row, lengths, cfg = batch
     args = [torch.from_numpy(a).to(dev) for a in (bank, row, lengths)]
     kw = timing_kwargs(cfg)
     ms = cuda_ms(lambda: dram_timing_batch(*args, **kw), reps=20)
+    graph = graph_ms(lambda: dram_timing_batch(*args, **kw), reps=20)
+    breakdown = device_us_by_kernel(lambda: dram_timing_batch(*args, **kw), reps=5)
     got = dram_timing_batch(*args, **kw)
     t0 = time.perf_counter()
     want = dram_timing_batch_plain(*args, **kw)
@@ -612,12 +697,26 @@ def phase_kernel_timing(dev, batch) -> dict:
     err = int((got.long() - want.long()).abs().max())
     check(torch.equal(got, want), f"kernel != plain at the largest bucket: max err {err}")
     B, L = bank.shape
+    segments = plan_segments(B, L, **{k: kw[k] for k in
+                                      ("nbanks", "tRCD", "tRP", "tRC", "tBL", "lookahead")})
     requests = int(lengths.sum())
     nbytes = 8 * requests + 4 * B + 16 * B
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = OPS_PER_REQUEST * requests / PEAK_SCALAR_OPS_PER_S * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+    # what the matrix path itself executes: MATRIX_OPS_PER_COLUMN a request
+    # in each of D columns, and a D x D mat-vec (a compare, an add, a max an
+    # entry) a non-empty segment
+    D = 2 * cfg.nbanks + 2
+    seg = -(-L // segments)
+    live_segments = int(sum(-(-int(n) // seg) for n in lengths)) if segments > 1 else 0
+    matrix_ops = (MATRIX_OPS_PER_COLUMN * D * requests + 3 * D * D * live_segments
+                  if segments > 1 else None)
+    return dict(ms=ms, graph_ms=graph, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                segments=segments, live_segments=live_segments, matrix_ops=matrix_ops,
+                matrix_ops_ms=None if matrix_ops is None
+                else matrix_ops / PEAK_SCALAR_OPS_PER_S * 1e3,
+                kernel_us_per_call=breakdown,
                 longest_trace_requests=int(lengths.max()),
                 max_abs_err=err, shape=[B, L], requests=requests)
 
@@ -782,7 +881,9 @@ def phase_main_device(graphs: dict) -> tuple[list[dict], dict]:
               launches={k: counts[k] for k in KERNELS},
               wall_s=round(sum(r["wall_s"] for r in rows), 3),
               host_s=round(sum(r["host_s"] for r in rows), 3),
-              kernel_s=round(sum(r["kernel_ms"] for r in rows) / 1e3, 4)))
+              kernel_s=round(sum(r["kernel_ms"] for r in rows) / 1e3, 4),
+              kernel_ms_by_name={k: round(sum(r["kernel_ms_by_name"][k] for r in rows), 3)
+                                 for k in KERNELS}))
     return rows, dict(counts=counts, largest=rec.largest)
 
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times the SpMV (B3) and attention (B4) kernels of two checkouts of this
-repository in turn on one CUDA card, each beside its library call.
+"""Times the DRAM timing (B1), SpMV (B3) and attention (B4) kernels of two
+checkouts of this repository in turn on one CUDA card, each beside its
+library call where one exists.
 
     git archive <rev> | tar -x -C build/base     # a gitignored directory
     python3 kernel_ab.py --base build/base
@@ -8,10 +9,16 @@ repository in turn on one CUDA card, each beside its library call.
 Run from the repository root on a machine with a CUDA card and ``nvcc``.
 One child process per tree, in the order base, this tree, this tree, base,
 so that a drift of the card's clocks reaches both alike.  Each child puts
-its tree's ``src`` first on the path, builds that tree's ``spmv.cu`` and
-``attention.cu`` with that tree's ``kernels/_build.py`` (into that tree's
-``build/``), and times on the same seeded inputs:
+its tree's ``src`` first on the path, builds that tree's ``dram_timing.cu``,
+``spmv.cu`` and ``attention.cu`` with that tree's ``kernels/_build.py`` (into
+that tree's ``build/``), and times on the same seeded inputs:
 
+- ``dram_timing_batch`` on the main path's largest call (the first batch of
+  the largest length bucket of ``lj/foregraph/bfs`` on its own preset, as
+  ``chip_smoke.py`` phase ``kernel_timing`` takes it), as the wrapper
+  chooses and walked one request after another (``segments=1`` where the
+  wrapper takes it); its output must be the same bit for bit in every child
+  and case (no PyTorch call computes it);
 - ``spmv_ell`` on the PageRank ELL of the paper graphs ``lj`` (75,008 x 31)
   and ``tw`` (65,536 x 52), as the ``semexec="device"`` path builds it,
   checked bit for bit against ``spmv_ell_plain``, beside the CSR mat-vec;
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import subprocess
 import sys
@@ -40,7 +48,10 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "kernel_ab.json"
 SPMV_GRAPHS = ("lj", "tw")
 ATTN_SHAPE = (4, 1024, 16, 8, 128)  # B, S, query heads, kv heads, head dim
-REPS = {"spmv": 50, "attention": 20}
+REPS = {"dram_timing": 5, "spmv": 50, "attention": 20}
+# the scenario whose largest kernel call B1 is timed at
+B1_SCENARIO = dict(graph="lj", accelerator="foregraph", problem="bfs", dram="foregraph",
+                   mapping="row", page_policy="open", pseudo_channels=False)
 
 
 def sha(t) -> str:
@@ -64,6 +75,7 @@ def child(tree: Path, rounds: int) -> dict:
     from repro_torch.graph.generators import PAPER_GRAPHS
     from repro_torch.kernels import _build
     from repro_torch.kernels.attention import attention_fwd, attention_plain
+    from repro_torch.kernels.dram_timing import dram_timing_batch
     from repro_torch.kernels.spmv import spmv_ell, spmv_ell_plain
     from repro_torch.kernels.spmv.spmv import to_ell
 
@@ -72,13 +84,35 @@ def child(tree: Path, rounds: int) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc each, started together
-        list(pool.map(_build.load, ("spmv", "attention")))
+    with ThreadPoolExecutor(3) as pool:  # one nvcc each, started together
+        list(pool.map(_build.load, ("dram_timing", "spmv", "attention")))
     build_s = time.perf_counter() - t0
     line = dict(tree=str(tree), build_s=build_s, cases={})
 
+    graphs = {name: PAPER_GRAPHS[name].build() for name in SPMV_GRAPHS}
+    pending, _ = chip_smoke.prepare(B1_SCENARIO, graphs)
+    bank, row, lengths, cfg = chip_smoke.largest_group(pending)
+    args = [torch.from_numpy(a).to(dev) for a in (bank, row, lengths)]
+    kw = chip_smoke.timing_kwargs(cfg)
+    got = dram_timing_batch(*args, **kw)
+    t = chip_smoke.alternate_ms({"kernel": lambda: dram_timing_batch(*args, **kw)},
+                                reps=REPS["dram_timing"], rounds=rounds)
+    line["cases"]["dram_timing/lj"] = dict(
+        shape=list(bank.shape), inputs=sha(args[0]) + sha(args[1]) + sha(args[2]),
+        output=sha(got), kernel=t["kernel"]["eager"], graph_kernel=t["kernel"]["graph"])
+    # the same call walked one request after another: a tree whose wrapper
+    # takes ``segments`` walks at segments=1, an older one only walks
+    walk = ({"segments": 1} if "segments" in inspect.signature(dram_timing_batch).parameters
+            else {})
+    got = dram_timing_batch(*args, **walk, **kw)
+    t = chip_smoke.alternate_ms({"kernel": lambda: dram_timing_batch(*args, **walk, **kw)},
+                                reps=REPS["dram_timing"], rounds=rounds)
+    line["cases"]["dram_timing/lj/walk"] = dict(
+        shape=list(bank.shape), inputs=sha(args[0]) + sha(args[1]) + sha(args[2]),
+        output=sha(got), kernel=t["kernel"]["eager"], graph_kernel=t["kernel"]["graph"])
+
     for gname in SPMV_GRAPHS:
-        g = PAPER_GRAPHS[gname].build()
+        g = graphs[gname]
         w_eff = semexec._acc_weight("pr", g.src, None, g.degrees_out)
         idx, val = (torch.from_numpy(a).to(dev) for a in to_ell(g.src, g.dst, w_eff, g.n))
         x = torch.from_numpy(np.random.default_rng(7).random(g.n).astype(np.float32)).to(dev)
@@ -151,13 +185,20 @@ def main() -> None:
                          timeout=60).stdout.strip()
     summary = {case: {label: {key: [ln["cases"][case][key]["median"] for ln in lines
                                     if ln["label"] == label]
-                              for key in ("kernel", "library", "graph_kernel", "graph_library")}
+                              for key in ("kernel", "library", "graph_kernel", "graph_library")
+                              if key in lines[0]["cases"][case]}
                       for label in trees}
                for case in lines[0]["cases"]}
     for case in summary:
         inputs = {ln["cases"][case]["inputs"] for ln in lines}
         if len(inputs) != 1:
             sys.exit(f"kernel_ab: the trees saw different inputs for {case}")
+        outputs = {ln["cases"][case].get("output") for ln in lines}
+        if len(outputs) != 1:
+            sys.exit(f"kernel_ab: the trees' outputs differ for {case}: {outputs}")
+    if ({ln["cases"]["dram_timing/lj"]["output"] for ln in lines}
+            != {ln["cases"]["dram_timing/lj/walk"]["output"] for ln in lines}):
+        sys.exit("kernel_ab: dram_timing's walk and its wrapper's choice differ")
     OUT.parent.mkdir(exist_ok=True)
     OUT.write_text(json.dumps(dict(card=smi, runs=lines, summary=summary), indent=1) + "\n")
     print(smi, flush=True)

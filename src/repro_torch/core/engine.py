@@ -4,8 +4,9 @@ Two engines with identical request-level semantics:
 
 1. The exact sequential model: per-bank state carried request by request.
    On the CUDA card it is the hand-written kernel
-   ``repro_torch/csrc/dram_timing.cu`` (one thread block per trace); on the
-   CPU its plain PyTorch version
+   ``repro_torch/csrc/dram_timing.cu`` (each trace cut into segments whose
+   max-plus maps are folded, or walked directly); on the CPU its plain
+   PyTorch version
    (``repro_torch.kernels.dram_timing.dram_timing_batch_plain``).  Both are
    bit-equal to the reference's ``repro.core.engine._scan_engine_impl``.
    It is the default for small and medium traces.

@@ -4,9 +4,13 @@ PyTorch version.
 ``dram_timing_batch`` times every row of a padded ``[B, L]`` bank/row batch
 (bank == -1 marks a no-op; ``lengths[b]`` true requests per row) and returns
 int32 ``[B, 4]``: (cycles + tCL, hits, misses, conflicts).  On a CUDA tensor
-it launches the hand-written kernel ``csrc/dram_timing.cu`` (the port of
+it launches the hand-written kernels of ``csrc/dram_timing.cu`` (the port of
 ``repro/kernels/dram_timing/dram_timing.py::dram_timing_pallas_batch``) or
 raises; on a CPU tensor it takes ``dram_timing_batch_plain``.
+
+On the card a batch either takes the matrix path, each trace cut into
+``segments`` pieces whose max-plus maps are built in parallel and folded,
+or the direct walk (one warp per trace); ``plan_segments`` chooses.
 """
 from __future__ import annotations
 
@@ -17,19 +21,57 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._platform import LAUNCHES
 
-MAX_BANKS = 128  # the kernel's shared-memory bank-state capacity
+MAX_BANKS = 128  # the direct walk's bank-state capacity
+MATRIX_BANKS = 16  # the matrix path's: a D = 2 * 16 + 2 = 34 state vector
+# Segments of the matrix path: SEGMENT requests each (a warp builds a
+# segment's map in time proportional to its length; groups of maps are then
+# multiplied and folded in time that grows with their number), and no more
+# of them than fill the card with TARGET_WARPS warps (132 SMs x 32).
+SEGMENT = 256
+TARGET_WARPS = 132 * 32
+# bound on the growth of a -inf entry over a trace (its maps and their
+# products), so that it stays below -2^29, the cut between -inf and a real
+# entry
+_MAX_SEGMENT_GROWTH = 1 << 28
 
 _FN = None
+_SCRATCH_FN = None
 
 
 def _kernel_fn():
-    global _FN
+    global _FN, _SCRATCH_FN
     if _FN is None:
-        fn = _build.load("dram_timing").dram_timing_batch_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        lib = _build.load("dram_timing")
+        fn = lib.dram_timing_batch_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+                       + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        scratch = lib.dram_timing_scratch_ints
+        scratch.argtypes = [ctypes.c_int] * 3
+        scratch.restype = ctypes.c_longlong
+        _FN, _SCRATCH_FN = fn, scratch
+    return _FN, _SCRATCH_FN
+
+
+def matrix_path_holds(L: int, *, nbanks: int, tRCD: int, tRP: int, tRC: int,
+                      tBL: int, lookahead: int) -> bool:
+    """Whether the matrix path is exact for these timings: at most
+    ``MATRIX_BANKS`` banks, no negative constant, ``tRCD <= tRC + 1`` (so
+    that row_ready is max(last_act + tRCD, 0) from the start), and a
+    trace of up to ``L`` requests cannot lift a -inf entry past -2^29."""
+    consts = (tRCD, tRP, tRC, tBL, lookahead)
+    return (nbanks <= MATRIX_BANKS and min(consts) >= 0 and tRCD <= tRC + 1
+            and L * (tRCD + tRP + tRC + tBL) < _MAX_SEGMENT_GROWTH)
+
+
+def plan_segments(B: int, L: int, **timing) -> int:
+    """Segments per trace for a ``[B, L]`` batch on the card: 1 (the direct
+    walk) where the matrix path does not hold or ``L`` is shorter than two
+    segments; else ``L // SEGMENT``, or fewer where ``B`` of them would
+    pass ``TARGET_WARPS``."""
+    if B <= 0 or not matrix_path_holds(L, **timing):
+        return 1
+    return max(1, min(L // SEGMENT, -(-TARGET_WARPS // B)))
 
 
 def _check(bank: torch.Tensor, row: torch.Tensor, lengths: torch.Tensor,
@@ -53,27 +95,42 @@ def _check(bank: torch.Tensor, row: torch.Tensor, lengths: torch.Tensor,
 def dram_timing_batch(bank: torch.Tensor, row: torch.Tensor,
                       lengths: torch.Tensor, *, nbanks: int, tCL: int,
                       tRCD: int, tRP: int, tRC: int, tBL: int, lookahead: int,
-                      page_open: bool = True) -> torch.Tensor:
+                      page_open: bool = True,
+                      segments: int | None = None) -> torch.Tensor:
     """Time a ``[B, L]`` batch; returns int32 ``[B, 4]`` on bank's device.
 
-    CUDA tensors launch the kernel on the current stream (no sync); CPU
-    tensors take the plain version.  Anything else raises."""
+    CUDA tensors launch the kernels on the current stream (no sync); CPU
+    tensors take the plain version.  Anything else raises.  ``segments``
+    (CUDA only) overrides ``plan_segments``: 1 takes the direct walk, more
+    the matrix path, which raises where ``matrix_path_holds`` is false."""
     _check(bank, row, lengths, nbanks)
-    kw = dict(nbanks=nbanks, tCL=tCL, tRCD=tRCD, tRP=tRP, tRC=tRC, tBL=tBL,
-              lookahead=lookahead, page_open=page_open)
+    timing = dict(nbanks=nbanks, tRCD=tRCD, tRP=tRP, tRC=tRC, tBL=tBL,
+                  lookahead=lookahead)
+    kw = dict(timing, tCL=tCL, page_open=page_open)
     if bank.device.type == "cpu":
         return dram_timing_batch_plain(bank, row, lengths, **kw)
     if bank.device.type != "cuda":
         raise ValueError(f"unsupported device {bank.device}")
     B, L = bank.shape
+    if segments is None:
+        segments = plan_segments(B, L, **timing)
+    elif segments < 1:
+        raise ValueError(f"segments must be >= 1, got {segments}")
+    elif segments > 1 and not matrix_path_holds(L, **timing):
+        raise ValueError(f"the matrix path does not hold for nbanks={nbanks} and "
+                         f"these timings; use segments=1")
     out = torch.empty((B, 4), dtype=torch.int32, device=bank.device)
     if B == 0:
         return out
+    fn, scratch_ints = _kernel_fn()
+    scratch = torch.empty(scratch_ints(B, segments, nbanks), dtype=torch.int32,
+                          device=bank.device)
     stream = torch.cuda.current_stream(bank.device).cuda_stream
     with torch.cuda.device(bank.device):
-        err = _kernel_fn()(bank.data_ptr(), row.data_ptr(), lengths.data_ptr(),
-                           out.data_ptr(), B, L, nbanks, tCL, tRCD, tRP, tRC,
-                           tBL, lookahead, int(bool(page_open)), stream)
+        err = fn(bank.data_ptr(), row.data_ptr(), lengths.data_ptr(),
+                 out.data_ptr(), B, L, nbanks, tCL, tRCD, tRP, tRC, tBL,
+                 lookahead, int(bool(page_open)), segments,
+                 scratch.data_ptr() if scratch.numel() else None, stream)
     if err != 0:
         raise RuntimeError(f"dram_timing kernel launch failed: CUDA error {err}")
     LAUNCHES["dram_timing"] += 1
