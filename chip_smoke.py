@@ -111,7 +111,8 @@ PEAK_SCALAR_OPS_PER_S = 67e12
 OPS_PER_REQUEST = 20
 # int32 operations per request in each column of the matrix path's segment
 # map (horizon: add, max; t_act: add, max, max; row_ready: add; slot_end:
-# max, add; see csrc/dram_timing.cu, kernel 3)
+# max, add; see csrc/dram_timing.cu, kernel 3), for an estimate of what that
+# path executes (chip_smoke.json only: no bound is drawn from it)
 MATRIX_OPS_PER_COLUMN = 8
 KERNELS = ("dram_timing", "edge_update", "spmv", "attention")
 # bf16 tensor-core peak (H100 SXM data sheet, dense), the rate of the
@@ -128,7 +129,7 @@ TIMING_ROUNDS = 7
 # the bf16 attention kernel must run wgmma and load by TMA: SASS opcodes
 ATTENTION_SASS = ("HGMMA", "UTMALDG")
 # keys of a kernel's timing that its line in the kernels JSON carries too
-EXTRA_KEYS = ("segments", "matrix_ops", "matrix_ops_ms", "ms_min", "ms_max",
+EXTRA_KEYS = ("segments", "ms_min", "ms_max",
               "library_ms_min", "library_ms_max", "graph_ms",
               "graph_ms_min", "graph_ms_max", "graph_library_ms", "graph_library_ms_min",
               "graph_library_ms_max", "rounds")
@@ -299,7 +300,9 @@ def phase_kernel_vs_plain(dev, lj_batch) -> int:
         dram_timing_batch,
         dram_timing_batch_plain,
         plan_segments,
+        target_warps,
     )
+    from repro_torch.kernels.dram_timing.dram_timing import _launch
 
     presets = {name: dram_config(name) for name in ("ddr3", "default", "hbm", "hitgraph")}
     presets["hbm-pc"] = dram_config("hbm", pseudo_channels=True).pseudo_channel_view()
@@ -317,11 +320,13 @@ def phase_kernel_vs_plain(dev, lj_batch) -> int:
         want = dram_timing_batch_plain(*args, **kw)
         err = 0
         for segments in segment_counts:
-            got = dram_timing_batch(*args, segments=segments, **kw)
+            got = (dram_timing_batch(*args, **kw) if segments is None
+                   else _launch(*args, segments, **kw))
             torch.cuda.synchronize()
             err = max(err, int((got.long() - want.long()).abs().max()))
-            used = segments or plan_segments(bank.shape[0], bank.shape[1], **{
-                k: kw[k] for k in ("nbanks", "tRCD", "tRP", "tRC", "tBL", "lookahead")})
+            used = segments or plan_segments(
+                *bank.shape, warps=target_warps(dev),
+                **{k: kw[k] for k in ("nbanks", "tRCD", "tRP", "tRC", "tBL", "lookahead")})
             check(torch.equal(got, want),
                   f"kernel != plain on {label}, {used} segments: max err {err}")
             cases.append(dict(case=label, segments=used, shape=list(bank.shape)))
@@ -506,26 +511,31 @@ def prepare(sc: dict, graphs: dict):
                        root=spec.root, dram=dram), spec.root
 
 
+def scan_buckets(pending) -> list[int]:
+    """Length buckets of the traces ``simulate_batch`` sends to the kernel
+    for ``pending``, in increasing order."""
+    from repro_torch.core import engine
+
+    return sorted({engine._pow2_bucket(tr.n) for tr in pending.traces()
+                   if tr.n and engine.select_engine(tr.n, pending.config.engine,
+                                                    pending.config.scan_cutoff) == "scan"})
+
+
 def largest_bucket(pending) -> int:
     """Length bucket of the longest trace ``simulate_batch`` sends to the
     kernel for ``pending`` (0 if none)."""
-    from repro_torch.core import engine
-
-    return max((engine._pow2_bucket(tr.n) for tr in pending.traces()
-                if tr.n and engine.select_engine(tr.n, pending.config.engine,
-                                                 pending.config.scan_cutoff) == "scan"),
-               default=0)
+    return max(scan_buckets(pending), default=0)
 
 
-def largest_group(pending):
-    """The first kernel batch of the largest length bucket that
-    ``simulate_batch`` forms for ``pending`` (same dedup, bucketing and
+def largest_group(pending, L: int | None = None):
+    """The first kernel batch of length bucket ``L`` (default: the largest)
+    that ``simulate_batch`` forms for ``pending`` (same dedup, bucketing and
     chunking): (bank, row, lengths, cfg)."""
     import numpy as np
 
     from repro_torch.core import engine
 
-    L = largest_bucket(pending)
+    L = largest_bucket(pending) if L is None else L
     seen, group = set(), []
     for tr in pending.traces():
         key = tr.structural_key() if hasattr(tr, "structural_key") else id(tr)
@@ -671,6 +681,28 @@ def phase_main(graphs: dict) -> tuple[list[dict], dict]:
     return rows, dict(counts=counts, batch=largest_group(pending))
 
 
+def matrix_ops_estimate(lengths, L: int, segments: int, nbanks: int) -> int:
+    """An estimate of the int32 operations the matrix path executes on a
+    batch: MATRIX_OPS_PER_COLUMN a request in each of D columns (the
+    segments' maps), 2 D^3 a product of two maps (an add and a max per term;
+    a group of k live maps takes k - 1), and 3 D^2 a fold step (a compare,
+    an add and a max per entry; one a group), with the groups that
+    ``csrc/dram_timing.cu::launch_matrix`` forms.  The last-rows pass and
+    the open-row scan are left out."""
+    D = 2 * nbanks + 2
+    seg = -(-L // segments)
+    G = 1
+    while 3 * G * G < segments:
+        G += 1
+    G = 1 if G < 3 else G
+    ops = 0
+    for n in lengths:
+        live = min(segments, -(-int(n) // seg))
+        steps = -(-live // G)
+        ops += MATRIX_OPS_PER_COLUMN * D * int(n) + 2 * D ** 3 * (live - steps) + 3 * D * D * steps
+    return ops
+
+
 def phase_kernel_timing(dev, batch) -> dict:
     """B1 at the path's largest call, whole, against the plain version bit
     for bit.  ``ms`` is the mean of 20 calls back to back (every PR's
@@ -681,6 +713,7 @@ def phase_kernel_timing(dev, batch) -> dict:
         dram_timing_batch,
         dram_timing_batch_plain,
         plan_segments,
+        target_warps,
     )
 
     bank, row, lengths, cfg = batch
@@ -697,25 +730,17 @@ def phase_kernel_timing(dev, batch) -> dict:
     err = int((got.long() - want.long()).abs().max())
     check(torch.equal(got, want), f"kernel != plain at the largest bucket: max err {err}")
     B, L = bank.shape
-    segments = plan_segments(B, L, **{k: kw[k] for k in
-                                      ("nbanks", "tRCD", "tRP", "tRC", "tBL", "lookahead")})
+    segments = plan_segments(B, L, warps=target_warps(dev), **{
+        k: kw[k] for k in ("nbanks", "tRCD", "tRP", "tRC", "tBL", "lookahead")})
     requests = int(lengths.sum())
     nbytes = 8 * requests + 4 * B + 16 * B
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = OPS_PER_REQUEST * requests / PEAK_SCALAR_OPS_PER_S * 1e3
-    # what the matrix path itself executes: MATRIX_OPS_PER_COLUMN a request
-    # in each of D columns, and a D x D mat-vec (a compare, an add, a max an
-    # entry) a non-empty segment
-    D = 2 * cfg.nbanks + 2
-    seg = -(-L // segments)
-    live_segments = int(sum(-(-int(n) // seg) for n in lengths)) if segments > 1 else 0
-    matrix_ops = (MATRIX_OPS_PER_COLUMN * D * requests + 3 * D * D * live_segments
-                  if segments > 1 else None)
     return dict(ms=ms, graph_ms=graph, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                segments=segments, live_segments=live_segments, matrix_ops=matrix_ops,
-                matrix_ops_ms=None if matrix_ops is None
-                else matrix_ops / PEAK_SCALAR_OPS_PER_S * 1e3,
+                segments=segments,
+                matrix_ops_estimate=(matrix_ops_estimate(lengths, L, segments, cfg.nbanks)
+                                     if segments > 1 else None),
                 kernel_us_per_call=breakdown,
                 longest_trace_requests=int(lengths.max()),
                 max_abs_err=err, shape=[B, L], requests=requests)

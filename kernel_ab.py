@@ -16,9 +16,11 @@ that tree's ``build/``), and times on the same seeded inputs:
 - ``dram_timing_batch`` on the main path's largest call (the first batch of
   the largest length bucket of ``lj/foregraph/bfs`` on its own preset, as
   ``chip_smoke.py`` phase ``kernel_timing`` takes it), as the wrapper
-  chooses and walked one request after another (``segments=1`` where the
-  wrapper takes it); its output must be the same bit for bit in every child
-  and case (no PyTorch call computes it);
+  chooses and walked one request after another (``_launch`` at one segment
+  where the tree has it), and on the path's largest call of its shortest
+  bucket (``tiny/hitgraph/bfs`` on ``default``, [32, 256], which every
+  tree walks); its output must be the same bit for bit in every child
+  and case of one batch (no PyTorch call computes it);
 - ``spmv_ell`` on the PageRank ELL of the paper graphs ``lj`` (75,008 x 31)
   and ``tw`` (65,536 x 52), as the ``semexec="device"`` path builds it,
   checked bit for bit against ``spmv_ell_plain``, beside the CSR mat-vec;
@@ -36,7 +38,6 @@ from __future__ import annotations
 
 import argparse
 import hashlib
-import inspect
 import json
 import subprocess
 import sys
@@ -48,10 +49,13 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "kernel_ab.json"
 SPMV_GRAPHS = ("lj", "tw")
 ATTN_SHAPE = (4, 1024, 16, 8, 128)  # B, S, query heads, kv heads, head dim
-REPS = {"dram_timing": 5, "spmv": 50, "attention": 20}
-# the scenario whose largest kernel call B1 is timed at
+REPS = {"dram_timing": 5, "dram_timing/short": 50, "spmv": 50, "attention": 20}
+# the scenarios whose largest kernel call (of their largest and of their
+# shortest length bucket) B1 is timed at
 B1_SCENARIO = dict(graph="lj", accelerator="foregraph", problem="bfs", dram="foregraph",
                    mapping="row", page_policy="open", pseudo_channels=False)
+B1_SHORT_SCENARIO = dict(graph="tiny", accelerator="hitgraph", problem="bfs", dram="default",
+                         mapping="row", page_policy="open", pseudo_channels=False)
 
 
 def sha(t) -> str:
@@ -75,6 +79,7 @@ def child(tree: Path, rounds: int) -> dict:
     from repro_torch.graph.generators import PAPER_GRAPHS
     from repro_torch.kernels import _build
     from repro_torch.kernels.attention import attention_fwd, attention_plain
+    import repro_torch.kernels.dram_timing.dram_timing as b1
     from repro_torch.kernels.dram_timing import dram_timing_batch
     from repro_torch.kernels.spmv import spmv_ell, spmv_ell_plain
     from repro_torch.kernels.spmv.spmv import to_ell
@@ -90,26 +95,30 @@ def child(tree: Path, rounds: int) -> dict:
     line = dict(tree=str(tree), build_s=build_s, cases={})
 
     graphs = {name: PAPER_GRAPHS[name].build() for name in SPMV_GRAPHS}
+    graphs["tiny"] = chip_smoke.graph_spec("tiny").build()
     pending, _ = chip_smoke.prepare(B1_SCENARIO, graphs)
-    bank, row, lengths, cfg = chip_smoke.largest_group(pending)
-    args = [torch.from_numpy(a).to(dev) for a in (bank, row, lengths)]
-    kw = chip_smoke.timing_kwargs(cfg)
-    got = dram_timing_batch(*args, **kw)
-    t = chip_smoke.alternate_ms({"kernel": lambda: dram_timing_batch(*args, **kw)},
-                                reps=REPS["dram_timing"], rounds=rounds)
-    line["cases"]["dram_timing/lj"] = dict(
-        shape=list(bank.shape), inputs=sha(args[0]) + sha(args[1]) + sha(args[2]),
-        output=sha(got), kernel=t["kernel"]["eager"], graph_kernel=t["kernel"]["graph"])
-    # the same call walked one request after another: a tree whose wrapper
-    # takes ``segments`` walks at segments=1, an older one only walks
-    walk = ({"segments": 1} if "segments" in inspect.signature(dram_timing_batch).parameters
-            else {})
-    got = dram_timing_batch(*args, **walk, **kw)
-    t = chip_smoke.alternate_ms({"kernel": lambda: dram_timing_batch(*args, **walk, **kw)},
-                                reps=REPS["dram_timing"], rounds=rounds)
-    line["cases"]["dram_timing/lj/walk"] = dict(
-        shape=list(bank.shape), inputs=sha(args[0]) + sha(args[1]) + sha(args[2]),
-        output=sha(got), kernel=t["kernel"]["eager"], graph_kernel=t["kernel"]["graph"])
+    short, _ = chip_smoke.prepare(B1_SHORT_SCENARIO, graphs)
+    # the largest call walked one request after another: a tree with
+    # ``_launch`` walks at one segment, an older one walks in its wrapper
+    walk = ((lambda *a, **k: b1._launch(*a, 1, **k)) if hasattr(b1, "_launch")
+            else dram_timing_batch)
+    for case, batch, fn, reps in (
+            ("dram_timing/lj", chip_smoke.largest_group(pending), dram_timing_batch,
+             REPS["dram_timing"]),
+            ("dram_timing/lj/walk", chip_smoke.largest_group(pending), walk,
+             REPS["dram_timing"]),
+            ("dram_timing/tiny/256", chip_smoke.largest_group(
+                short, min(chip_smoke.scan_buckets(short))), dram_timing_batch,
+             REPS["dram_timing/short"])):
+        bank, row, lengths, cfg = batch
+        args = [torch.from_numpy(a).to(dev) for a in (bank, row, lengths)]
+        kw = chip_smoke.timing_kwargs(cfg)
+        got = fn(*args, **kw)
+        t = chip_smoke.alternate_ms({"kernel": lambda: fn(*args, **kw)},
+                                    reps=reps, rounds=rounds)
+        line["cases"][case] = dict(
+            shape=list(bank.shape), inputs=sha(args[0]) + sha(args[1]) + sha(args[2]),
+            output=sha(got), kernel=t["kernel"]["eager"], graph_kernel=t["kernel"]["graph"])
 
     for gname in SPMV_GRAPHS:
         g = graphs[gname]

@@ -669,6 +669,9 @@ extern "C" long long dram_timing_scratch_ints(int B, int segments, int nbanks) {
   return segments > 1 ? scratch_ints(B, segments, nbanks) : 0;
 }
 
+// Banks the matrix path holds (the wrapper's MATRIX_BANKS must agree).
+extern "C" int dram_timing_matrix_banks() { return kMatrixBanks; }
+
 // segments == 1: the direct walk (any nbanks up to kMaxBanks).  segments >
 // 1: the matrix path with each trace cut into that many segments of
 // ceil(L / segments) requests (nbanks up to kMatrixBanks; scratch of

@@ -6,7 +6,8 @@ from repro_torch.kernels.dram_timing.dram_timing import (
     dram_timing_batch_plain,
     matrix_path_holds,
     plan_segments,
+    target_warps,
 )
 
 __all__ = ["MATRIX_BANKS", "MAX_BANKS", "dram_timing_batch", "dram_timing_batch_plain",
-           "matrix_path_holds", "plan_segments"]
+           "matrix_path_holds", "plan_segments", "target_warps"]

@@ -9,12 +9,15 @@ it launches the hand-written kernels of ``csrc/dram_timing.cu`` (the port of
 raises; on a CPU tensor it takes ``dram_timing_batch_plain``.
 
 On the card a batch either takes the matrix path, each trace cut into
-``segments`` pieces whose max-plus maps are built in parallel and folded,
-or the direct walk (one warp per trace); ``plan_segments`` chooses.
+segments whose max-plus maps are built in parallel and folded, or the
+direct walk (one warp per trace); ``plan_segments`` chooses the number of
+segments, 1 meaning the walk.  ``_launch`` takes that number as given, so
+that ``chip_smoke.py``, ``kernel_ab.py`` and the tests can force either path.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,13 +25,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._platform import LAUNCHES
 
 MAX_BANKS = 128  # the direct walk's bank-state capacity
-MATRIX_BANKS = 16  # the matrix path's: a D = 2 * 16 + 2 = 34 state vector
+# the matrix path's: a D = 2 * 16 + 2 = 34 state vector (the library's
+# dram_timing_matrix_banks, checked when it loads)
+MATRIX_BANKS = 16
 # Segments of the matrix path: SEGMENT requests each (a warp builds a
 # segment's map in time proportional to its length; groups of maps are then
 # multiplied and folded in time that grows with their number), and no more
-# of them than fill the card with TARGET_WARPS warps (132 SMs x 32).
+# of them than fill the card with 32 warps an SM (``target_warps``).
 SEGMENT = 256
-TARGET_WARPS = 132 * 32
 # bound on the growth of a -inf entry over a trace (its maps and their
 # products), so that it stays below -2^29, the cut between -inf and a real
 # entry
@@ -49,8 +53,18 @@ def _kernel_fn():
         scratch = lib.dram_timing_scratch_ints
         scratch.argtypes = [ctypes.c_int] * 3
         scratch.restype = ctypes.c_longlong
+        banks = lib.dram_timing_matrix_banks()
+        if banks != MATRIX_BANKS:
+            raise RuntimeError(f"dram_timing library holds {banks} banks on its matrix "
+                               f"path, MATRIX_BANKS says {MATRIX_BANKS}")
         _FN, _SCRATCH_FN = fn, scratch
     return _FN, _SCRATCH_FN
+
+
+@functools.lru_cache(maxsize=None)
+def target_warps(device: torch.device) -> int:
+    """Warps that fill ``device``: 32 for each of its SMs."""
+    return torch.cuda.get_device_properties(device).multi_processor_count * 32
 
 
 def matrix_path_holds(L: int, *, nbanks: int, tRCD: int, tRP: int, tRC: int,
@@ -64,14 +78,14 @@ def matrix_path_holds(L: int, *, nbanks: int, tRCD: int, tRP: int, tRC: int,
             and L * (tRCD + tRP + tRC + tBL) < _MAX_SEGMENT_GROWTH)
 
 
-def plan_segments(B: int, L: int, **timing) -> int:
-    """Segments per trace for a ``[B, L]`` batch on the card: 1 (the direct
-    walk) where the matrix path does not hold or ``L`` is shorter than two
-    segments; else ``L // SEGMENT``, or fewer where ``B`` of them would
-    pass ``TARGET_WARPS``."""
+def plan_segments(B: int, L: int, *, warps: int, **timing) -> int:
+    """Segments per trace for a ``[B, L]`` batch on a card that ``warps``
+    warps fill: 1 (the direct walk) where the matrix path does not hold or
+    ``L`` is shorter than two segments; else ``L // SEGMENT``, or fewer
+    where ``B`` of them would pass ``warps``."""
     if B <= 0 or not matrix_path_holds(L, **timing):
         return 1
-    return max(1, min(L // SEGMENT, -(-TARGET_WARPS // B)))
+    return max(1, min(L // SEGMENT, -(-warps // B)))
 
 
 def _check(bank: torch.Tensor, row: torch.Tensor, lengths: torch.Tensor,
@@ -95,14 +109,12 @@ def _check(bank: torch.Tensor, row: torch.Tensor, lengths: torch.Tensor,
 def dram_timing_batch(bank: torch.Tensor, row: torch.Tensor,
                       lengths: torch.Tensor, *, nbanks: int, tCL: int,
                       tRCD: int, tRP: int, tRC: int, tBL: int, lookahead: int,
-                      page_open: bool = True,
-                      segments: int | None = None) -> torch.Tensor:
+                      page_open: bool = True) -> torch.Tensor:
     """Time a ``[B, L]`` batch; returns int32 ``[B, 4]`` on bank's device.
 
-    CUDA tensors launch the kernels on the current stream (no sync); CPU
-    tensors take the plain version.  Anything else raises.  ``segments``
-    (CUDA only) overrides ``plan_segments``: 1 takes the direct walk, more
-    the matrix path, which raises where ``matrix_path_holds`` is false."""
+    CUDA tensors launch the kernels on the current stream (no sync), with
+    the segments ``plan_segments`` chooses; CPU tensors take the plain
+    version.  Anything else raises."""
     _check(bank, row, lengths, nbanks)
     timing = dict(nbanks=nbanks, tRCD=tRCD, tRP=tRP, tRC=tRC, tBL=tBL,
                   lookahead=lookahead)
@@ -111,14 +123,24 @@ def dram_timing_batch(bank: torch.Tensor, row: torch.Tensor,
         return dram_timing_batch_plain(bank, row, lengths, **kw)
     if bank.device.type != "cuda":
         raise ValueError(f"unsupported device {bank.device}")
+    segments = plan_segments(*bank.shape, warps=target_warps(bank.device), **timing)
+    return _launch(bank, row, lengths, segments, **kw)
+
+
+def _launch(bank: torch.Tensor, row: torch.Tensor, lengths: torch.Tensor,
+            segments: int, *, nbanks: int, tCL: int, tRCD: int, tRP: int, tRC: int,
+            tBL: int, lookahead: int, page_open: bool = True) -> torch.Tensor:
+    """Launch the kernels on CUDA tensors that ``dram_timing_batch`` would
+    accept, each trace cut into ``segments`` (1: the direct walk; more: the
+    matrix path, which raises where ``matrix_path_holds`` is false)."""
+    if segments < 1 or (segments > 1 and not matrix_path_holds(
+            bank.shape[1], nbanks=nbanks, tRCD=tRCD, tRP=tRP, tRC=tRC, tBL=tBL,
+            lookahead=lookahead)):
+        raise ValueError(f"{segments} segments do not hold for nbanks={nbanks} and "
+                         f"these timings")
+    if bank.device.type != "cuda":
+        raise ValueError(f"the kernels take CUDA tensors, got {bank.device}")
     B, L = bank.shape
-    if segments is None:
-        segments = plan_segments(B, L, **timing)
-    elif segments < 1:
-        raise ValueError(f"segments must be >= 1, got {segments}")
-    elif segments > 1 and not matrix_path_holds(L, **timing):
-        raise ValueError(f"the matrix path does not hold for nbanks={nbanks} and "
-                         f"these timings; use segments=1")
     out = torch.empty((B, 4), dtype=torch.int32, device=bank.device)
     if B == 0:
         return out

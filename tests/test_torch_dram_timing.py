@@ -36,6 +36,7 @@ from repro_torch.kernels.dram_timing import (  # noqa: E402
     matrix_path_holds,
     plan_segments,
 )
+from repro_torch.kernels.dram_timing.dram_timing import _launch  # noqa: E402
 
 PRESETS = {
     "ddr3": lambda: ref_dram_config("ddr3"),
@@ -275,10 +276,12 @@ def test_segmented_scan_model_matches_plain_and_scan_engine(preset, policy, segm
 
 def test_plan_segments_cuts_long_batches_and_walks_the_rest():
     kw = {k: _kwargs(ref_dram_config("hitgraph"))[k] for k in _TIMING}
+    kw["warps"] = 132 * 32  # an H100 SXM's 132 SMs, 32 warps each
     # the path's largest call: a few long traces fill the card by segments
     assert plan_segments(2, 262_144, **kw) == 1024  # segments of 256 requests
     assert plan_segments(8, 2048, **kw) == 8
     assert plan_segments(16, 262_144, **kw) == 264  # B x segments fill the card
+    assert plan_segments(16, 262_144, **{**kw, "warps": 114 * 32}) == 228  # fewer SMs
     assert plan_segments(8, 256, **kw) == 1  # too short to cut
     assert plan_segments(4096, 1 << 20, **kw) == 2  # B alone nearly fills it
     assert plan_segments(2, 262_144, **{**kw, "nbanks": MATRIX_BANKS + 1}) == 1
@@ -288,11 +291,24 @@ def test_plan_segments_cuts_long_batches_and_walks_the_rest():
 
 
 def test_wrapper_on_cpu_takes_plain_version_whatever_the_segments():
+    # the wrapper plans no segments on the CPU; only ``_launch`` takes a
+    # count, and it launches the kernels on CUDA tensors or raises
     cfg = ref_dram_config("default")
     kw = _kwargs(cfg)
     args = [torch.from_numpy(a) for a in _batch(5, cfg.nbanks)]
     want = dram_timing_batch_plain(*args, **kw)
     before = LAUNCHES["dram_timing"]
-    for segments in (None, 1, 3):
-        assert torch.equal(dram_timing_batch(*args, segments=segments, **kw), want)
+    assert torch.equal(dram_timing_batch(*args, **kw), want)
+    for segments in (1, 3):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            _launch(*args, segments, **kw)
     assert LAUNCHES["dram_timing"] == before
+
+
+@pytest.mark.parametrize("segments, nbanks", [(0, 16), (-1, 8), (3, MATRIX_BANKS + 1)])
+def test_launch_refuses_segment_counts_that_do_not_hold(segments, nbanks):
+    cfg = ref_dram_config("default")
+    kw = {**_kwargs(cfg), "nbanks": nbanks}
+    args = [torch.from_numpy(a) for a in _batch(6, nbanks)]
+    with pytest.raises(ValueError, match="segments do not hold"):
+        _launch(*args, segments, **kw)
