@@ -23,8 +23,15 @@ Phases, one JSON line each on stdout:
               the real ``lj/hitgraph/bfs`` batch at 1, 5, 37 and the
               wrapper's segments.  Edge update, bit for bit:
               random f32 (+inf sources, src -1 edges, empty segments,
-              negative values) and int32 (int32-max sources) inputs, and the
-              real ``lj`` HitGraph min layout.  SpMV, bit for bit: the real
+              negative values) and int32 (int32-max sources) inputs, the
+              real ``lj`` HitGraph min layout, and inputs that break the
+              kernel's grouping (``edge_update_cases``: dst runs of 5, 32
+              and 77 edges, src-sorted, every edge to one destination at
+              1,048,579 edges; mixed-sign candidates in a group, +inf
+              sources and src -1 inside groups, int32 adds that wrap; 0, 1,
+              31, 33 and 200,003 edges; each also from one edge in, off the
+              16-byte grid), each through the wrapper and planned for 1 and
+              3 resident blocks (four edges a lane, many rounds a warp).  SpMV, bit for bit: the real
               ``lj`` PageRank ELL layout (31 wide, the tiled path) and
               the ``tw`` one (52 wide, the wide-row path).  Attention, within the
               reference's tolerances (2e-5 in f32, 2e-2 in bf16; TF32 is
@@ -50,7 +57,9 @@ Phases, one JSON line each on stdout:
               bit-equal, acc values allclose) and record
               ``layout["engine"] == "device"``; the 8 bfs/pr pairs must equal
               the goldens too.  The edge-update and SpMV kernels must have
-              launched.
+              launched.  Printed: the edge-update calls by power-of-2 edge
+              count, with their CUDA-event ms and the host ms inside the
+              wrapper calls.
 6. serve_golden -- the LM serving path in f32 on the card against
               ``tests/data/torch_golden_serve.json`` (written from the JAX
               reference): ``qwen3_0_6b.reduced()`` and qwen3 at full width
@@ -77,10 +86,15 @@ Phases, one JSON line each on stdout:
               back to back from the host (CUDA events), as in every
               earlier run.  DRAM timing is timed whole at the path's largest
               call, also as a replayed CUDA graph, with its segment count
-              and the matrix path's own operation count beside the bound.  SpMV and attention are timed in turn with their
+              and the matrix path's own operation count beside the bound.  Edge update, SpMV and attention are timed in turn with their
               library call over 7 rounds, each round back to back (``ms``)
               and as a replayed CUDA graph (``graph_ms``, the device time
-              without the host's enqueue): median, min and max.
+              without the host's enqueue): median, min and max.  Edge
+              update also at the path's typical small call (the median size
+              of ``lj/foregraph/bfs``'s calls, in ``foregraph_call``), with
+              ``torch.profiler``'s device us of its kernels and the atomics
+              it takes at both calls, and the wrapper's host enqueue us a
+              call at the small one.
 
 Any mismatch raises and the exit code is nonzero; without a CUDA card, or
 outside the repository, it exits nonzero before printing any result.  The
@@ -133,6 +147,11 @@ EXTRA_KEYS = ("segments", "ms_min", "ms_max",
               "library_ms_min", "library_ms_max", "graph_ms",
               "graph_ms_min", "graph_ms_max", "graph_library_ms", "graph_library_ms_min",
               "graph_library_ms_max", "rounds")
+# the device pair whose edge-update call of median size B2 is timed at
+# (the path's typical small call)
+FOREGRAPH_PAIR = "foregraph/bfs"
+# wrapper calls a host-enqueue timing makes, with no sync until the end
+ENQUEUE_CALLS = 1000
 # acc values of the device engine against the numpy engine: the sums
 # associate in another order than np.add.at (tests/test_semexec.py:58)
 ACC_RTOL, ACC_ATOL = 1e-5, 1e-6
@@ -404,14 +423,67 @@ def lj_device_layouts(graphs: dict, dev):
     return lay_min, pr_layout(g, dev)
 
 
+def edge_update_cases(rng) -> dict:
+    """Inputs chosen to break the edge-update kernel's grouping, as numpy
+    arrays: edge orders (random; sorted by dst in runs of 5, 32 and 77
+    edges, shorter than, equal to and longer than a warp's round and
+    crossing its edges; sorted by src; every edge to one destination, at
+    1,048,579 edges), values (f32 with negative and positive candidates in
+    one group; +inf sources and src -1 edges inside groups; int32 near the
+    max, where the add wraps, with int32-max sources) and sizes (0, 1, 31,
+    33, and 200,003 edges: not a multiple of 4)."""
+    import numpy as np
+
+    i32max = np.iinfo(np.int32).max
+
+    def case(order: str, kind: str, m: int):
+        n = 64 + m // 4
+        src = rng.integers(0, n, m).astype(np.int32)
+        dst = rng.integers(0, n, m).astype(np.int32)
+        if kind == "i32-wrap":
+            values = rng.integers(i32max - 40, i32max, n).astype(np.int32)
+            values[rng.random(n) < 0.3] = i32max
+            delta = rng.integers(-5, 60, m).astype(np.int32)
+            src[rng.random(m) < 0.1] = -1
+        else:
+            values = (rng.standard_normal(n) * 10).astype(np.float32)
+            delta = (rng.standard_normal(m) * 3).astype(np.float32)
+            if kind == "f32-masked":
+                values[rng.random(n) < 0.3] = np.inf
+                src[rng.random(m) < 0.2] = -1
+        if order.startswith("dst-runs"):
+            dst = (np.arange(m) // int(order.removeprefix("dst-runs")) % n).astype(np.int32)
+        elif order == "src-sorted":
+            o = np.argsort(src, kind="stable")
+            src, dst, delta = src[o], dst[o], delta[o]
+        elif order == "one-dst":
+            dst = np.full(m, 7, np.int32)
+        return src, dst, delta, values
+
+    kinds = ("f32-mixed", "f32-masked", "i32-wrap")
+    cases = {f"{order}/{kind}/200003": case(order, kind, 200_003) for kind in kinds
+             for order in ("random", "dst-runs5", "dst-runs32", "dst-runs77", "src-sorted")}
+    cases.update({f"random/{kind}/{m}": case("random", kind, m) for kind in kinds
+                  for m in (0, 1, 31, 33)})
+    cases.update({f"one-dst/{kind}/1048579": case("one-dst", kind, 1_048_579)
+                  for kind in ("f32-masked", "i32-wrap")})
+    return cases
+
+
 def phase_edge_update_vs_plain(dev, graphs: dict, lay_min) -> int:
     """Edge-update kernel == plain, bit for bit, on the same CUDA tensors;
-    returns the max abs error (0, or the script has already failed)."""
+    returns the max abs error (0, or the script has already failed).  Every
+    case runs through the wrapper and at forced plans (``_launch`` planned
+    for 1 and 3 resident blocks: four edges a lane past 256 and 768 edges,
+    many rounds a warp); the adversarial cases also from one edge in (the
+    arrays then not 16-byte aligned, so the kernel loads an edge at a
+    time)."""
     import numpy as np
     import torch
 
     from repro_torch.graph.problems import PROBLEMS, reference_solve
     from repro_torch.kernels.edge_update import edge_update, edge_update_plain
+    from repro_torch.kernels.edge_update.edge_update import _launch
 
     rng = np.random.default_rng(2025)
     n, m = 100_000, 1_000_000
@@ -434,15 +506,26 @@ def phase_edge_update_vs_plain(dev, graphs: dict, lay_min) -> int:
     kept = torch.from_numpy(rng.random(lay_min["src"].shape[0]) < 0.7).to(dev)
     cases.append(("lj/hitgraph/bfs", torch.where(kept, lay_min["src"], -1),
                   lay_min["dst"], lay_min["delta"], *on(levels)))
+    for label, arrays in edge_update_cases(rng).items():
+        s, d, dl, v = on(*arrays)
+        cases.append((label, s, d, dl, v))
+        if len(s) > 1:  # one edge in, on the card: a base off the 16-byte grid
+            cases.append((label + "/offset1", s[1:], d[1:], dl[1:], v))
     t0 = time.perf_counter()
+    launches = 0
     for label, *args in cases:
-        got = edge_update(*args)
         want = edge_update_plain(*args)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"edge_update kernel != plain on {label}: "
-              f"{int((got != want).sum())} of {got.numel()} differ")
-    emit(dict(phase="kernel", kernel="edge_update", cases=len(cases), max_abs_err=0,
-              random_shape=[m, n], lj_shape=[int(lay_min["src"].shape[0]), g.n],
+        for how, fn in (("wrapper", edge_update),
+                        ("1 block", lambda *a: _launch(*a, resident=1)),
+                        ("3 blocks", lambda *a: _launch(*a, resident=3))):
+            got = fn(*args)
+            torch.cuda.synchronize()
+            launches += 1
+            check(torch.equal(got, want), f"edge_update kernel != plain on {label} ({how}): "
+                  f"{int((got != want).sum())} of {got.numel()} differ")
+    emit(dict(phase="kernel", kernel="edge_update", cases=len(cases), launches=launches,
+              max_abs_err=0, random_shape=[m, n],
+              lj_shape=[int(lay_min["src"].shape[0]), g.n],
               seconds=round(time.perf_counter() - t0, 3)))
     return 0
 
@@ -754,9 +837,10 @@ def device_pairs() -> list[tuple[str, str]]:
 
 class KernelRecorder:
     """Times every wrapper call the path makes, with CUDA events around the
-    port's own call sites (the wrappers still do the counting), and keeps a
-    copy of the inputs of each kernel's largest call (the first of equal
-    sizes)."""
+    port's own call sites (the wrappers still do the counting) and a host
+    clock inside them, and keeps a copy of the inputs of each kernel's
+    largest call (the first of equal sizes) and, when ``capture`` names
+    one, of one edge-update call."""
 
     SITES = {  # kernel -> (module path, attribute, size of a call's inputs)
         "dram_timing": ("repro_torch.core.engine", "dram_timing_batch",
@@ -770,8 +854,13 @@ class KernelRecorder:
     }
 
     def __init__(self):
+        # (kernel, start, end, size of the call's inputs, host s in the call)
         self.events: list = []
         self.largest: dict = {}
+        self.pair: str | None = None  # the pair now running
+        self.edge_sizes: dict = {}  # pair -> the size of each edge-update call
+        self.capture: tuple | None = None  # (pair, i): keep its i-th edge-update call
+        self.captured: list | None = None  # the inputs of that call
         self._saved: list = []
 
     def __enter__(self):
@@ -788,12 +877,19 @@ class KernelRecorder:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
+                t0 = time.perf_counter()
                 out = _fn(*args, **kw)
+                host_s = time.perf_counter() - t0
                 end.record()
-                self.events.append((_name, start, end))
                 size = _size(*args)
+                self.events.append((_name, start, end, size, host_s))
                 if _name != "dram_timing" and size > self.largest.get(_name, (-1,))[0]:
                     self.largest[_name] = (size, [a.clone() for a in args])
+                if _name == "edge_update":
+                    sizes = self.edge_sizes.setdefault(self.pair, [])
+                    if self.capture == (self.pair, len(sizes)):
+                        self.captured = [a.clone() for a in args]
+                    sizes.append(size)
                 return out
 
             setattr(module, attr, timed)
@@ -805,9 +901,38 @@ class KernelRecorder:
 
     def kernel_ms(self) -> dict:
         out = {name: 0.0 for name in self.SITES}
-        for name, start, end in self.events:
+        for name, start, end, *_ in self.events:
             out[name] += start.elapsed_time(end)
         return out
+
+
+def median_call(sizes: list) -> int:
+    """The index of the call at the median of ``sizes`` (sorted stably)."""
+    return sorted(range(len(sizes)), key=lambda i: sizes[i])[len(sizes) // 2]
+
+
+def capture_edge_update(g, root: int, pair: str, index: int) -> list:
+    """The inputs of the ``index``-th edge-update call of the device pair
+    ``pair`` ("accel/problem") on ``g`` from ``root``, from a run of its
+    own (host caches cleared, so that the semantics run again): the path's
+    run clones nothing, so the allocations of the clones do not reach its
+    timing."""
+    import dataclasses
+
+    from repro_torch.configs.graphsim import default_config
+    from repro_torch.core import hostcache
+    from repro_torch.core.accelerators import run_accelerator
+    from repro_torch.graph.problems import PROBLEMS
+
+    accel, prob = pair.split("/")
+    hostcache.clear_all()
+    with KernelRecorder() as rec:
+        rec.pair = pair
+        rec.capture = (pair, index)
+        run_accelerator(accel, g, PROBLEMS[prob], root, None,
+                        dataclasses.replace(default_config(accel), semexec="device"))
+    check(rec.captured is not None, f"{pair} made no edge-update call {index}")
+    return rec.captured
 
 
 def phase_main_device(graphs: dict) -> tuple[list[dict], dict]:
@@ -854,15 +979,24 @@ def phase_main_device(graphs: dict) -> tuple[list[dict], dict]:
     rows = []
     _platform.reset_launches()
     t_phase = time.perf_counter()
+    by_bucket: dict = {}  # edge-update calls and ms by power-of-2 edge count
     with KernelRecorder() as rec:
         for accel, prob in pairs:
             rec.events.clear()
+            rec.pair = f"{accel}/{prob}"
             t0 = time.perf_counter()
             rep = run_accelerator(accel, g, PROBLEMS[prob], root, None,
                                   config(accel, "device"))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             kms = rec.kernel_ms()
+            for name, start, end, size, host_s in rec.events:
+                if name == "edge_update":
+                    b = by_bucket.setdefault(1 << max(size - 1, 0).bit_length(),
+                                             [0, 0.0, 0.0])
+                    b[0] += 1
+                    b[1] += start.elapsed_time(end)
+                    b[2] += host_s * 1e3
             label = f"lj/{accel}/{prob}/{ACCELERATORS[accel].default_dram}"
             want, want_hash = ref[(accel, prob)]
             thash = trace_hash(accel, prob, "device")
@@ -908,39 +1042,114 @@ def phase_main_device(graphs: dict) -> tuple[list[dict], dict]:
               host_s=round(sum(r["host_s"] for r in rows), 3),
               kernel_s=round(sum(r["kernel_ms"] for r in rows) / 1e3, 4),
               kernel_ms_by_name={k: round(sum(r["kernel_ms_by_name"][k] for r in rows), 3)
-                                 for k in KERNELS}))
-    return rows, dict(counts=counts, largest=rec.largest)
+                                 for k in KERNELS},
+              edge_update_by_edges={str(b): [c, round(ms, 4), round(host_ms, 4)]
+                                    for b, (c, ms, host_ms) in sorted(by_bucket.items())}))
+    sizes = rec.edge_sizes[FOREGRAPH_PAIR]
+    foregraph_call = capture_edge_update(g, root, FOREGRAPH_PAIR, median_call(sizes))
+    return rows, dict(counts=counts, largest=rec.largest, foregraph_call=foregraph_call,
+                      foregraph_sizes=sizes,
+                      edge_update_by_edges={b: v for b, v in sorted(by_bucket.items())})
 
 
-def phase_edge_update_timing(args) -> dict:
+def edge_update_library(args):
+    """The library yardstick of B2: torch's own amin scatter from the same
+    candidates (computed outside the timed call) into a sentinel base."""
     import torch
 
-    from repro_torch.kernels.edge_update import edge_update, edge_update_plain, sentinel_max
+    from repro_torch.kernels.edge_update import sentinel_max
 
     src, dst, delta, values = args
-    ms = cuda_ms(lambda: edge_update(*args), reps=50)
-    plain_ms = cuda_ms(lambda: edge_update_plain(*args), reps=20)
-    got = edge_update(*args)
-    want = edge_update_plain(*args)
-    # the library yardstick: torch's own amin scatter from the same
-    # candidates (computed outside the timed call) into a sentinel base
     top = sentinel_max(values.dtype)
     sv = values[src.clamp_min(0).long()]
     cand = torch.where((src >= 0) & (sv != top), sv + delta, top)
     index = dst.clamp_min(0).long()
     base = torch.full_like(values, top)
-    library = lambda: torch.scatter_reduce(base, 0, index, cand, "amin", include_self=True)  # noqa: E731
-    library_ms = cuda_ms(library, reps=50)
-    check(torch.equal(got, want), "edge_update kernel != plain at the largest call")
-    check(torch.equal(library(), got), "edge_update kernel != torch.scatter_reduce")
-    m, n = src.numel(), values.numel()
-    nbytes = 12 * m + 8 * n  # src, dst, delta per edge; values in, acc out
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = m / PEAK_SCALAR_OPS_PER_S * 1e3  # one add per edge
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                library="torch.scatter_reduce(amin)", bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                max_abs_err=0, shape=[m, n], bytes=nbytes)
+    return lambda: torch.scatter_reduce(base, 0, index, cand, "amin", include_self=True)
+
+
+def edge_update_atomics(args, per_lane: int) -> dict:
+    """The atomics B2 takes on these inputs: one a live edge in the first
+    design (``live_edges``), and in this one a run of equal consecutive dst
+    with a live edge in each round of ``32 * per_lane`` edges
+    (``runs_with_candidate``; exact where no dst comes back apart within a
+    round, as on HitGraph's sorted blocks; a few more where one does)."""
+    import torch
+
+    from repro_torch.kernels.edge_update import sentinel_max
+
+    src, dst, _, values = args
+    m = src.numel()
+    live = (src >= 0) & (values[src.clamp_min(0).long()] != sentinel_max(values.dtype))
+    if m == 0:
+        return dict(live_edges=0, runs_with_candidate=0)
+    start = torch.arange(m, device=src.device) % (32 * per_lane) == 0
+    start[1:] |= dst[1:] != dst[:-1]
+    run = torch.cumsum(start.long(), 0) - 1
+    has = torch.zeros(int(run[-1]) + 1, dtype=torch.long, device=src.device)
+    has.index_add_(0, run, live.long())
+    return dict(live_edges=int(live.sum()), runs_with_candidate=int((has > 0).sum()))
+
+
+def enqueue_us(fn, calls: int = ENQUEUE_CALLS, repeats: int = TIMING_ROUNDS) -> dict:
+    """Host microseconds a call of ``fn()`` takes to enqueue: a host clock
+    around ``calls`` calls with no sync until the end, ``repeats`` times;
+    the median and the least (the host's other work adds, never takes
+    away)."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e6 / calls)
+        torch.cuda.synchronize()
+    return dict(median=statistics.median(times), min=min(times))
+
+
+def phase_edge_update_timing(args, small_args) -> dict:
+    """B2 at the path's largest call and at its typical small call (the
+    median size of ``FOREGRAPH_PAIR``'s calls): the kernel and
+    ``scatter_reduce`` in turn over 7 rounds, back to back and as a
+    replayed graph, each against the plain version bit for bit; the
+    profiler's device us of each of its kernels, and the wrapper's host
+    enqueue us a call at the small one."""
+    import torch
+
+    from repro_torch.kernels.edge_update import edge_update, edge_update_plain
+    from repro_torch.kernels.edge_update.edge_update import _DEVICES, launch_plan
+
+    out = {}
+    for label, a in (("largest", args), ("foregraph", small_args)):
+        library = edge_update_library(a)
+        t = alternate_ms({"kernel": lambda a=a: edge_update(*a), "library": library}, reps=50)
+        got = edge_update(*a)
+        check(torch.equal(got, edge_update_plain(*a)),
+              f"edge_update kernel != plain at the {label} call")
+        check(torch.equal(library(), got), f"edge_update kernel != torch.scatter_reduce "
+              f"at the {label} call")
+        m, n = a[0].numel(), a[3].numel()
+        nbytes = 12 * m + 8 * n  # src, dst, delta per edge; values in, acc out
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        ops_ms = m / PEAK_SCALAR_OPS_PER_S * 1e3  # one add per edge
+        per_lane, blocks, chunk = launch_plan(m, _DEVICES[a[3].device.index][1])
+        out[label] = dict(plain_ms=cuda_ms(lambda a=a: edge_update_plain(*a), reps=20),
+                          **spread(t), library="torch.scatter_reduce(amin)",
+                          bound_ms=max(bytes_ms, ops_ms),
+                          bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                          max_abs_err=0, shape=[m, n], bytes=nbytes,
+                          plan=dict(per_lane=per_lane, blocks=blocks, chunk=chunk),
+                          atomics=edge_update_atomics(a, per_lane),
+                          kernel_us_per_call=device_us_by_kernel(
+                              lambda a=a: edge_update(*a), reps=20))
+    out["foregraph"]["enqueue_us_per_call"] = enqueue_us(
+        lambda: edge_update(*small_args))
+    return dict(out["largest"], foregraph_call=out["foregraph"])
 
 
 def ell_to_csr(idx, w, ncols: int):
@@ -1343,7 +1552,7 @@ def main() -> None:
     # 8. kernel timing at each path's largest call
     timing = {"dram_timing": phase_kernel_timing(dev, info["batch"]),
               "edge_update": phase_edge_update_timing(
-                  device_info["largest"]["edge_update"][1]),
+                  device_info["largest"]["edge_update"][1], device_info["foregraph_call"]),
               "spmv": phase_spmv_timing(device_info["largest"]["spmv"][1]),
               "attention": phase_attention_timing(*serve.pop("largest"))}
     launches = {"dram_timing": info["counts"]["dram_timing"],

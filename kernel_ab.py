@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times the DRAM timing (B1), SpMV (B3) and attention (B4) kernels of two
-checkouts of this repository in turn on one CUDA card, each beside its
-library call where one exists.
+"""Times the DRAM timing (B1), edge-update (B2), SpMV (B3) and attention (B4)
+kernels of two checkouts of this repository in turn on one CUDA card, each
+beside its library call where one exists.
 
     git archive <rev> | tar -x -C build/base     # a gitignored directory
     python3 kernel_ab.py --base build/base
@@ -10,8 +10,9 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``.
 One child process per tree, in the order base, this tree, this tree, base,
 so that a drift of the card's clocks reaches both alike.  Each child puts
 its tree's ``src`` first on the path, builds that tree's ``dram_timing.cu``,
-``spmv.cu`` and ``attention.cu`` with that tree's ``kernels/_build.py`` (into
-that tree's ``build/``), and times on the same seeded inputs:
+``edge_update.cu``, ``spmv.cu`` and ``attention.cu`` with that tree's
+``kernels/_build.py`` (into that tree's ``build/``), and times on the same
+seeded inputs:
 
 - ``dram_timing_batch`` on the main path's largest call (the first batch of
   the largest length bucket of ``lj/foregraph/bfs`` on its own preset, as
@@ -21,6 +22,14 @@ that tree's ``build/``), and times on the same seeded inputs:
   bucket (``tiny/hitgraph/bfs`` on ``default``, [32, 256], which every
   tree walks); its output must be the same bit for bit in every child
   and case of one batch (no PyTorch call computes it);
+- ``edge_update`` at the ``semexec="device"`` path's largest call (the first
+  of ``lj/hitgraph/wcc``, 1,784,584 edges) and at its typical small call
+  (the call of median size of ``lj/foregraph/bfs``, 10,209 edges), both
+  taken from the tree's own run of those pairs through ``chip_smoke``'s
+  recorder; checked bit for bit against ``edge_update_plain``, beside
+  ``torch.scatter_reduce(amin)``, with each kernel's device us a call
+  (``torch.profiler``) and, at the small call, the wrapper's host enqueue us
+  a call (1,000 calls, no sync until the end);
 - ``spmv_ell`` on the PageRank ELL of the paper graphs ``lj`` (75,008 x 31)
   and ``tw`` (65,536 x 52), as the ``semexec="device"`` path builds it,
   checked bit for bit against ``spmv_ell_plain``, beside the CSR mat-vec;
@@ -49,7 +58,12 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "kernel_ab.json"
 SPMV_GRAPHS = ("lj", "tw")
 ATTN_SHAPE = (4, 1024, 16, 8, 128)  # B, S, query heads, kv heads, head dim
-REPS = {"dram_timing": 5, "dram_timing/short": 50, "spmv": 50, "attention": 20}
+REPS = {"dram_timing": 5, "dram_timing/short": 50, "edge_update": 50, "spmv": 50,
+        "attention": 20}
+# the device pairs whose edge-update calls B2 is timed at: the path's
+# largest call is the first of the first, its typical one the median of the
+# second's (chip_smoke.FOREGRAPH_PAIR)
+B2_PAIRS = (("hitgraph", "wcc"), ("foregraph", "bfs"))
 # the scenarios whose largest kernel call (of their largest and of their
 # shortest length bucket) B1 is timed at
 B1_SCENARIO = dict(graph="lj", accelerator="foregraph", problem="bfs", dram="foregraph",
@@ -69,6 +83,8 @@ def sha(t) -> str:
 def child(tree: Path, rounds: int) -> dict:
     """Times one tree's kernels; returns its line."""
     sys.path.insert(0, str(tree / "src"))
+    import dataclasses
+
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -78,9 +94,13 @@ def child(tree: Path, rounds: int) -> dict:
     from repro_torch.core import semexec
     from repro_torch.graph.generators import PAPER_GRAPHS
     from repro_torch.kernels import _build
+    from repro_torch.configs.graphsim import default_config
+    from repro_torch.core.accelerators import run_accelerator
+    from repro_torch.graph.problems import PROBLEMS
     from repro_torch.kernels.attention import attention_fwd, attention_plain
     import repro_torch.kernels.dram_timing.dram_timing as b1
     from repro_torch.kernels.dram_timing import dram_timing_batch
+    from repro_torch.kernels.edge_update import edge_update, edge_update_plain
     from repro_torch.kernels.spmv import spmv_ell, spmv_ell_plain
     from repro_torch.kernels.spmv.spmv import to_ell
 
@@ -89,8 +109,8 @@ def child(tree: Path, rounds: int) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc each, started together
-        list(pool.map(_build.load, ("dram_timing", "spmv", "attention")))
+    with ThreadPoolExecutor(4) as pool:  # one nvcc each, started together
+        list(pool.map(_build.load, ("dram_timing", "edge_update", "spmv", "attention")))
     build_s = time.perf_counter() - t0
     line = dict(tree=str(tree), build_s=build_s, cases={})
 
@@ -119,6 +139,33 @@ def child(tree: Path, rounds: int) -> dict:
         line["cases"][case] = dict(
             shape=list(bank.shape), inputs=sha(args[0]) + sha(args[1]) + sha(args[2]),
             output=sha(got), kernel=t["kernel"]["eager"], graph_kernel=t["kernel"]["graph"])
+
+    g = graphs["lj"]
+    with chip_smoke.KernelRecorder() as rec:
+        for accel, prob in B2_PAIRS:
+            rec.pair = f"{accel}/{prob}"
+            run_accelerator(accel, g, PROBLEMS[prob], chip_smoke.graph_spec("lj").root, None,
+                            dataclasses.replace(default_config(accel), semexec="device"))
+    small = chip_smoke.capture_edge_update(
+        g, chip_smoke.graph_spec("lj").root, chip_smoke.FOREGRAPH_PAIR,
+        chip_smoke.median_call(rec.edge_sizes[chip_smoke.FOREGRAPH_PAIR]))
+    for case, a in (("edge_update/lj/largest", rec.largest["edge_update"][1]),
+                    ("edge_update/lj/foregraph", small)):
+        got = edge_update(*a)
+        chip_smoke.check(torch.equal(got, edge_update_plain(*a)),
+                         f"{tree}: edge_update kernel != plain, bit for bit, at {case}")
+        t = chip_smoke.alternate_ms({"kernel": lambda a=a: edge_update(*a),
+                                     "library": chip_smoke.edge_update_library(a)},
+                                    reps=REPS["edge_update"], rounds=rounds)
+        line["cases"][case] = dict(
+            shape=[a[0].numel(), a[3].numel()], inputs="".join(sha(x) for x in a),
+            output=sha(got), kernel_us=chip_smoke.device_us_by_kernel(
+                lambda a=a: edge_update(*a), reps=20),
+            **({"enqueue_us": chip_smoke.enqueue_us(lambda a=a: edge_update(*a))}
+               if case.endswith("foregraph") else {}),
+            **{f"{prefix}{who}": t[who][kind] for who in ("kernel", "library")
+               for kind, prefix in (("eager", ""), ("graph", "graph_"))})
+    del rec, small
 
     for gname in SPMV_GRAPHS:
         g = graphs[gname]
@@ -198,6 +245,11 @@ def main() -> None:
                               if key in lines[0]["cases"][case]}
                       for label in trees}
                for case in lines[0]["cases"]}
+    for case, by_tree in summary.items():  # B2's profiler split and host enqueue
+        for label, row in by_tree.items():
+            for key in ("kernel_us", "enqueue_us"):
+                if key in lines[0]["cases"][case]:
+                    row[key] = [ln["cases"][case][key] for ln in lines if ln["label"] == label]
     for case in summary:
         inputs = {ln["cases"][case]["inputs"] for ln in lines}
         if len(inputs) != 1:

@@ -167,14 +167,17 @@ spmv_ell_kernel(const int* __restrict__ idx, const float* __restrict__ w,
 
 }  // namespace
 
+// ``max_blocks``: the grid's cap (8 blocks for each SM of the device, from
+// the wrapper); tiles past it loop in the block.
 extern "C" int spmv_ell_launch(const void* idx, const void* w, const void* x,
-                               void* y, long long rows, int D, void* stream) {
+                               void* y, long long rows, int D, int max_blocks,
+                               void* stream) {
   if (rows <= 0) return 0;
-  if (D <= 0 || (reinterpret_cast<uintptr_t>(idx) | reinterpret_cast<uintptr_t>(w)) % 16)
+  if (D <= 0 || max_blocks <= 0 ||
+      (reinterpret_cast<uintptr_t>(idx) | reinterpret_cast<uintptr_t>(w)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles = (rows + kRows - 1) / kRows;
-  constexpr long long kMaxBlocks = 132 * 8;  // tiles past this loop in the block
-  const int blocks = static_cast<int>(tiles < kMaxBlocks ? tiles : kMaxBlocks);
+  const int blocks = static_cast<int>(tiles < max_blocks ? tiles : max_blocks);
   const size_t smem = sizeof(int) * kRows * (D <= kTileCols ? 2 * (D | 1) : kTileCols + 1);
   spmv_ell_kernel<<<blocks, kRows, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(idx), static_cast<const float*>(w),

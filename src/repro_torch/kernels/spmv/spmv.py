@@ -12,12 +12,15 @@ the card they are equal bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._platform import LAUNCHES
+
+BLOCKS_PER_SM = 8  # the grid's cap for each SM of the device
 
 _FN = None
 
@@ -48,11 +51,18 @@ def _kernel_fn():
     global _FN
     if _FN is None:
         fn = _build.load("spmv").spmv_ell_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+@functools.lru_cache(maxsize=None)
+def max_blocks(device: torch.device) -> int:
+    """The kernel's grid cap on ``device``: 8 blocks for each of its SMs
+    (tiles past it loop in the block)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count * BLOCKS_PER_SM
 
 
 def _check(idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor) -> None:
@@ -89,7 +99,7 @@ def spmv_ell(idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor) -> torch.Tenso
     if rows == 0:
         return y
     args = (idx.data_ptr(), w.data_ptr(), x.data_ptr(), y.data_ptr(), rows, d,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            max_blocks(x.device), torch.cuda.current_stream(x.device).cuda_stream)
     with torch.cuda.device(x.device):
         err = _kernel_fn()(*args)
     if err != 0:
