@@ -60,14 +60,31 @@ Phases, one JSON line each on stdout:
               launched.  Printed: the edge-update calls by power-of-2 edge
               count, with their CUDA-event ms and the host ms inside the
               wrapper calls.
-6. serve_golden -- the LM serving path in f32 on the card against
+6. sweep   -- the sweep runner (``repro_torch.sweep.run_sweep(...,
+              device=None)``) on the paper's tab4 (4 accelerators x bfs, pr,
+              wcc on DDR4) on ``lj``, each run on a fresh cache under
+              ``build/sweep_cache`` with the host caches cleared: scenario
+              mode, batch mode and batch mode on 2 spawn workers (each its
+              own CUDA context) must give the rows of
+              ``tests/data/torch_golden_sweep.json`` (written from the JAX
+              reference); the last again on its cache must be all cached
+              with no launch; ``engines=("numpy", "device")`` must give
+              numpy rows equal to the goldens and device rows equal to them
+              but for ``engine`` (every pair of ``semexec.SUPPORTED`` on
+              ``device``), launching B1, B2 and B3.  An error row or a
+              ``timing_fallback`` record fails.  Printed: seconds per
+              scenario of each semantic engine, each alone in scenario mode
+              in turns (numpy, device, device, numpy), split into host and
+              kernel time by CUDA events around the wrappers; every run's
+              wall and launches; the parent's peak device memory.
+7. serve_golden -- the LM serving path in f32 on the card against
               ``tests/data/torch_golden_serve.json`` (written from the JAX
               reference): ``qwen3_0_6b.reduced()`` and qwen3 at full width
               cut to 2 layers, weights from ``interop.lm_params_numpy``.
               Teacher-forced logits of every step within the file's
               tolerance; ``ServeEngine``'s greedy tokens equal up to each
               request's first near-tie (counted and printed).
-7. serve   -- the LM serving path at full size: ``qwen3_0_6b`` at its
+8. serve   -- the LM serving path at full size: ``qwen3_0_6b`` at its
               published widths and depth (28 layers) in bf16, weights from
               ``Model.init`` with a seeded generator on the card.
               ``ServeEngine(batch=4, max_seq=1056)`` answers 8 requests of
@@ -79,7 +96,8 @@ Phases, one JSON line each on stdout:
               its plain version on the real q/k/v of layer 0 of wave 1.
               Printed: wall per wave, prefill and decode tokens per second,
               and the share of prefill time inside the attention kernel.
-8. kernels -- one line per ported kernel: launches on its path, its time at
+9. kernels -- one line per ported kernel: launches on its path (and in the
+              sweep's engines run, ``sweep_launches``), its time at
               the path's largest call (CUDA events), its bound, the plain
               version's time and, where one PyTorch call computes the same
               function, that call's time.  ``ms`` is the mean of calls
@@ -155,6 +173,16 @@ ENQUEUE_CALLS = 1000
 # acc values of the device engine against the numpy engine: the sums
 # associate in another order than np.add.at (tests/test_semexec.py:58)
 ACC_RTOL, ACC_ATOL = 1e-5, 1e-6
+# the reference's tab4 rows on lj (written by tests/test_torch_sweep.py)
+SWEEP_GOLDEN = ROOT / "tests" / "data" / "torch_golden_sweep.json"
+SWEEP_WORKERS = 2
+# row columns that the host's numpy computes through libm's pow (the degree
+# distribution's skewness), whose last bits follow the host's CPU and numpy
+# build rather than anything the port runs: the card's host reads lj's one
+# ulp away from the goldens' host.  The rows must carry the value the port's
+# own graph gives on this host, within HOST_STAT_RTOL of the golden's.
+HOST_STATS = ("degree_skewness",)
+HOST_STAT_RTOL = 1e-12
 
 
 def emit(obj: dict) -> None:
@@ -853,9 +881,10 @@ class KernelRecorder:
                       lambda q, *a, **k: q.numel()),
     }
 
-    def __init__(self):
+    def __init__(self, keep_inputs: bool = True):
         # (kernel, start, end, size of the call's inputs, host s in the call)
         self.events: list = []
+        self.keep_inputs = keep_inputs  # clone the largest calls' inputs
         self.largest: dict = {}
         self.pair: str | None = None  # the pair now running
         self.edge_sizes: dict = {}  # pair -> the size of each edge-update call
@@ -883,7 +912,8 @@ class KernelRecorder:
                 end.record()
                 size = _size(*args)
                 self.events.append((_name, start, end, size, host_s))
-                if _name != "dram_timing" and size > self.largest.get(_name, (-1,))[0]:
+                if (self.keep_inputs and _name != "dram_timing"
+                        and size > self.largest.get(_name, (-1,))[0]):
                     self.largest[_name] = (size, [a.clone() for a in args])
                 if _name == "edge_update":
                     sizes = self.edge_sizes.setdefault(self.pair, [])
@@ -1050,6 +1080,162 @@ def phase_main_device(graphs: dict) -> tuple[list[dict], dict]:
     return rows, dict(counts=counts, largest=rec.largest, foregraph_call=foregraph_call,
                       foregraph_sizes=sizes,
                       edge_update_by_edges={b: v for b, v in sorted(by_bucket.items())})
+
+
+def sweep_summary(per_scenario: list[dict], launches: dict) -> dict:
+    """Seconds per scenario of one engine's run, split as phase ``main``
+    splits them (kernel: CUDA events around the wrapper calls)."""
+    n = len(per_scenario)
+    wall = sum(r["wall_s"] for r in per_scenario)
+    kernel_s = sum(r["kernel_ms"] for r in per_scenario) / 1e3
+    return dict(scenarios=n, wall_s=wall, host_s=wall - kernel_s, kernel_s=kernel_s,
+                s_per_scenario=wall / n, host_s_per_scenario=(wall - kernel_s) / n,
+                kernel_s_per_scenario=kernel_s / n,
+                kernel_ms_by_name={k: sum(r["kernel_ms_by_name"][k] for r in per_scenario)
+                                   for k in KERNELS},
+                launches={k: launches[k] for k in KERNELS})
+
+
+def phase_sweep(graphs: dict, smi: str) -> dict:
+    """The paper's tab4 on lj through ``repro_torch.sweep.run_sweep(...,
+    device=None)``, each run on a fresh cache under ``build/`` and with the
+    host caches cleared, the launch counts zeroed just before it and read
+    just after: scenario mode, batch mode, batch mode on two spawn workers
+    (each opens its own CUDA context), the last again on its cache (all
+    cached, no launch), the numpy and device engines side by side, and each
+    engine alone, in turns, for its seconds per scenario.  Rows must equal
+    the reference's goldens; an error row or a ``timing_fallback`` record
+    fails the script."""
+    import contextlib
+    import shutil
+
+    import torch
+
+    from repro_torch.core import hostcache, semexec
+    from repro_torch.graph.generators import PAPER_GRAPHS
+    from repro_torch.kernels import _platform
+    from repro_torch.sweep import SweepSpec, result_rows, run_sweep, runner
+
+    golden = json.loads(SWEEP_GOLDEN.read_text())
+    axes = {k: tuple(v) for k, v in golden["spec"].items()}
+    check(len(axes["graphs"]) == 1 and len(golden["rows"]) == 12,
+          f"unexpected sweep goldens: {axes}, {len(golden['rows'])} rows")
+    (graph,) = axes["graphs"]
+    runner._GRAPHS[PAPER_GRAPHS[graph]] = graphs[graph]  # graph generation is set-up
+    host_stats = {k: getattr(graphs[graph], k) for k in HOST_STATS}
+    drift = {k: v - golden["rows"][0][k] for k, v in host_stats.items()}
+    for k, v in host_stats.items():
+        check(abs(drift[k]) <= HOST_STAT_RTOL * abs(golden["rows"][0][k]),
+              f"sweep: the host's {k} {v!r} is not the golden's {golden['rows'][0][k]!r}")
+    want = [{**row, **host_stats} for row in golden["rows"]]
+    cache_root = ROOT / "build" / "sweep_cache"
+    shutil.rmtree(cache_root, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    runs: dict = {}
+
+    def run(label: str, engines=("numpy",), cache: str | None = None,
+            timed: bool = False, **kw):
+        rec = KernelRecorder(keep_inputs=False) if timed else contextlib.nullcontext()
+        marks = []  # (clock, recorded calls) as each scenario finishes
+
+        def progress(msg: str) -> None:
+            if " ok " in msg or " ERROR " in msg:
+                marks.append((time.perf_counter(), len(rec.events) if timed else 0))
+
+        hostcache.clear_all()  # each run pays its own semantic half
+        _platform.reset_launches()
+        with rec:
+            t0 = time.perf_counter()
+            result = run_sweep(SweepSpec(name="tab4", engines=engines, **axes),
+                               cache_dir=str(cache_root / (cache or label)),
+                               progress=progress, device=None, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = _platform.launch_counts()
+        errors = [r for r in result.results if r.status == "error"]
+        check(not errors, f"sweep {label}: {len(errors)} error rows, first: "
+              + (errors[0].record.get("error") or "").strip()[-800:] if errors else "")
+        fallback = [r.scenario.scenario_id for r in result.results
+                    if "timing_fallback" in r.record]
+        check(not fallback, f"sweep {label}: timing_fallback in {fallback}")
+        per_scenario = []
+        if timed:
+            check(len(marks) == len(result.results), f"sweep {label}: {len(marks)} marks")
+            prev_t, prev_n = t0, 0
+            for (t, n), r in zip(marks, result.results):
+                events = rec.events[prev_n:n]
+                by_name = {k: sum(s.elapsed_time(e) for name, s, e, *_ in events if name == k)
+                           for k in KERNELS}
+                kernel_ms = sum(by_name.values())
+                per_scenario.append(dict(
+                    id=r.scenario.scenario_id, wall_s=t - prev_t, kernel_ms=kernel_ms,
+                    host_s=t - prev_t - kernel_ms / 1e3, kernel_ms_by_name=by_name,
+                    calls={k: sum(1 for e in events if e[0] == k) for k in KERNELS}))
+                prev_t, prev_n = t, n
+            check(counts["dram_timing"] == sum(r["calls"]["dram_timing"] for r in per_scenario),
+                  f"sweep {label}: launches != wrapper calls")
+        runs[label] = dict(mode=kw.get("mode", "scenario"), workers=kw.get("workers", 0),
+                           engines=list(engines), wall_s=wall, executed=result.n_executed,
+                           cached=result.n_cached, launches=counts,
+                           per_scenario=per_scenario)
+        return result, counts
+
+    # 1. the golden rows in scenario mode, batch mode and on spawn workers
+    for label, kw in (("scenario", dict(timed=True)), ("batch", dict(mode="batch")),
+                      ("workers", dict(mode="batch", workers=SWEEP_WORKERS))):
+        result, counts = run(label, **kw)
+        check(result.n_executed == 12, f"sweep {label}: executed {result.n_executed}")
+        rows = result_rows(result)
+        check(rows == want, f"sweep {label}: rows differ from the goldens: "
+              + next((f"{a} != {b}" for a, b in zip(rows, want) if a != b), "count"))
+        if label != "workers":  # the workers' launches are theirs
+            check(counts["dram_timing"] > 0, f"sweep {label}: no dram_timing launch")
+
+    # 2. the same cache again: all cached, nothing runs
+    result, counts = run("cached", cache="workers", mode="batch", workers=SWEEP_WORKERS)
+    check(result.all_cached and result.n_executed == 0,
+          f"sweep cached: {result.summary()}")
+    check(not any(counts.values()), f"sweep cached: launches {counts}")
+    check(result_rows(result) == want, "sweep cached: rows differ from the goldens")
+
+    # 3. both semantic engines: device rows equal numpy rows but for engine
+    result, engines_counts = run("engines", engines=("numpy", "device"))
+    rows = result_rows(result)
+    check(rows[0::2] == want, "sweep engines: numpy rows differ from the goldens")
+    for n, d in zip(rows[0::2], rows[1::2]):
+        pair = f"{d['accelerator']}/{d['problem']}"
+        supported = d["problem"] in semexec.SUPPORTED.get(d["accelerator"], ())
+        check(d["engine"] == ("device" if supported else "numpy"),
+              f"sweep engines: {pair} ran on {d['engine']}")
+        check({**d, "engine": "numpy"} == n, f"sweep engines: {pair} device row != numpy row")
+    for name in ("dram_timing", "edge_update", "spmv"):
+        check(engines_counts[name] > 0, f"sweep engines: no {name} launch")
+
+    # 4. each engine alone in scenario mode, timed in turns (numpy, device,
+    # device, numpy) so that a drift of the host reaches both alike
+    turns: dict = {"numpy": [], "device": []}
+    for i, engine in enumerate(("numpy", "device", "device", "numpy")):
+        label = f"{engine}_{i}"
+        result, counts = run(label, engines=(engine,), timed=True)
+        check([{**r, "engine": "numpy"} for r in result_rows(result)] == want,
+              f"sweep {label}: rows differ from the goldens but for engine")
+        turns[engine].append(sweep_summary(runs[label]["per_scenario"], counts))
+    engines = {engine: dict(turns=t, **{key: sum(x[key] for x in t) / len(t) for key in (
+        "s_per_scenario", "host_s_per_scenario", "kernel_s_per_scenario")})
+        for engine, t in turns.items()}
+    import numpy
+
+    info = dict(card=smi, spec=f"tab4 on {graph}", scenarios=len(want),
+                host_stat_drift=drift, numpy=numpy.__version__,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                runs={k: {kk: vv for kk, vv in v.items() if kk != "per_scenario"}
+                      for k, v in runs.items()},
+                engines=engines, device_over_numpy_wall=(
+                    engines["device"]["s_per_scenario"] / engines["numpy"]["s_per_scenario"]))
+    emit(dict(phase="sweep", **info))
+    return dict(info, per_scenario={k: v["per_scenario"] for k, v in runs.items()
+                                    if v["per_scenario"]},
+                launches=engines_counts)
 
 
 def edge_update_library(args):
@@ -1487,7 +1673,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
     if not (ROOT / "src" / "repro_torch").is_dir() or not GOLDEN.exists() \
-            or not SERVE_GOLDEN.exists():
+            or not SERVE_GOLDEN.exists() or not SWEEP_GOLDEN.exists():
         fail(f"run from the repository root: {ROOT} holds no src/repro_torch")
     sys.path.insert(0, str(ROOT / "src"))
     dev = torch.device("cuda")
@@ -1542,14 +1728,17 @@ def main() -> None:
     # 5. the semexec="device" path
     device_rows, device_info = phase_main_device(graphs)
 
-    # 6. the LM serving path in f32 against the reference's goldens
+    # 6. the sweep runner: the paper's tab4 on lj, every mode and engine
+    sweep = phase_sweep(graphs, smi)
+
+    # 7. the LM serving path in f32 against the reference's goldens
     serve_golden = phase_serve_golden(dev)
 
-    # 7. the LM serving path at full size
+    # 8. the LM serving path at full size
     serve = phase_serve(dev, smi)
     worst["attention"] = max(worst["attention"], serve["real_qkv_err"])
 
-    # 8. kernel timing at each path's largest call
+    # 9. kernel timing at each path's largest call
     timing = {"dram_timing": phase_kernel_timing(dev, info["batch"]),
               "edge_update": phase_edge_update_timing(
                   device_info["largest"]["edge_update"][1], device_info["foregraph_call"]),
@@ -1565,7 +1754,7 @@ def main() -> None:
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        dict(card=smi, scenarios=rows, device_pairs=device_rows,
+        dict(card=smi, scenarios=rows, device_pairs=device_rows, sweep=sweep,
              serve_golden=serve_golden, serve=serve, kernel_timing=timing,
              attention_sass=sass),
         indent=1) + "\n")
@@ -1581,6 +1770,7 @@ def main() -> None:
         ms=timing[name]["ms"], plain_ms=timing[name]["plain_ms"],
         bound_ms=timing[name]["bound_ms"], bound_by=timing[name]["bound_by"],
         library_ms=timing[name].get("library_ms"), shape=timing[name]["shape"],
+        sweep_launches=sweep["launches"][name],
         **{key: timing[name][key] for key in EXTRA_KEYS if key in timing[name]},
         card=smi) for name in KERNELS]))
     print(smi, flush=True)

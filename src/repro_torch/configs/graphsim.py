@@ -41,3 +41,31 @@ CONFIG_FACTORIES = {
 
 def default_config(accel: str, **kw) -> AccelConfig:
     return CONFIG_FACTORIES[accel](**kw)
+
+
+# Memory-controller scenario axes (SweepSpec fields of the same names).
+# The defaults — row-interleaved mapping, open page, no pseudo-channels —
+# reproduce the paper's implicit controller; the full cross product is the
+# memory-sensitivity study (benchmarks/bench_memory.py).
+MEMORY_AXES: dict[str, tuple] = dict(
+    mappings=("row", "bank", "bank_xor"),
+    page_policies=("open", "closed"),
+    pseudo_channels=(False, True),
+)
+
+# The subset the memory-sensitivity study sweeps by default: the extremes
+# of each axis on the HBM preset.
+MEMORY_SENSITIVITY_AXES: dict[str, tuple] = dict(
+    mappings=("row", "bank_xor"),
+    page_policies=("open", "closed"),
+    pseudo_channels=(False, True),
+)
+
+# Graph-layout scenario axes (SweepSpec fields of the same names).  The
+# defaults — identity vertex order, scale-1 intervals — reproduce the
+# generator's layout exactly; the cross product is the partitioning
+# sensitivity study (benchmarks/bench_partition.py).
+LAYOUT_AXES: dict[str, tuple] = dict(
+    reorders=("identity", "degree", "bfs", "random"),
+    interval_scales=(1, 2),
+)

@@ -312,3 +312,61 @@ def test_launch_refuses_segment_counts_that_do_not_hold(segments, nbanks):
     args = [torch.from_numpy(a) for a in _batch(6, nbanks)]
     with pytest.raises(ValueError, match="segments do not hold"):
         _launch(*args, segments, **kw)
+
+
+# ---- ops: whole traces through the wrapper ------------------------------------
+
+
+def _traces(seed: int, pkg: str):
+    """A few traces of each package's Trace type: random lines with writes,
+    an empty one, a sequential one, lengths across two buckets."""
+    if pkg == "ref":
+        from repro.core.trace import Trace
+    else:
+        from repro_torch.core.trace import Trace
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in (300, 0, 1, 700, 64):
+        out.append(Trace(rng.integers(0, 1 << 16, size=n).astype(np.int64),
+                         rng.random(n) < 0.3))
+    out.append(Trace(np.arange(1000, dtype=np.int64), np.zeros(1000, dtype=bool)))
+    return out
+
+
+@pytest.mark.parametrize("policy", ["open", "closed"])
+@pytest.mark.parametrize("preset", ["ddr3", "default", "hbm", "hitgraph"])
+def test_simulate_trace_ops_match_reference(preset, policy):
+    """``ops.simulate_trace`` and ``ops.simulate_trace_batch`` on the CPU
+    equal the reference's ops on its scan oracle, trace for trace; empty
+    traces report zeros."""
+    from repro.kernels.dram_timing import ops as ref_ops
+    from repro_torch.core.dram import dram_config
+    from repro_torch.kernels.dram_timing import ops
+
+    cfg = dram_config(preset, page_policy=policy)
+    ref_cfg = ref_dram_config(preset, page_policy=policy)
+    traces, ref_traces = _traces(3, "port"), _traces(3, "ref")
+    want = ref_ops.simulate_trace_batch(ref_traces, ref_cfg, use_pallas=False)
+    assert ops.simulate_trace_batch(traces, cfg, device="cpu") == want
+    assert [ops.simulate_trace(t, cfg, device="cpu") for t in traces] == \
+        [ref_ops.simulate_trace(t, ref_cfg, use_pallas=False) for t in ref_traces]
+    assert want[1] == dict(cycles=0, hits=0, misses=0, conflicts=0)
+
+
+def test_simulate_trace_ops_device_policy(monkeypatch):
+    from repro_torch.core.dram import dram_config
+    from repro_torch.core.trace import Trace
+    from repro_torch.kernels.dram_timing import ops
+
+    cfg = dram_config("default")
+    empty = Trace(np.zeros(0, dtype=np.int64), np.zeros(0, dtype=bool))
+    before = dict(LAUNCHES)
+    assert ops.simulate_trace_batch([empty, empty], cfg, device="cpu") == \
+        [dict(cycles=0, hits=0, misses=0, conflicts=0)] * 2
+    assert ops.simulate_trace_batch([], cfg, device="cpu") == []
+    assert LAUNCHES == before  # the CPU launches nothing
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: ops.simulate_trace(empty, cfg),
+                 lambda: ops.simulate_trace_batch([empty], cfg, device="cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

@@ -191,7 +191,10 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_port_imports_nothing_of_jax_or_the_reference():
     port = ROOT / "src" / "repro_torch"
-    files = sorted(port.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
+    # the port's bench harness and the pure-data module it reads
+    files = sorted(port.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
+                                          ROOT / "benchmarks" / "run_torch.py",
+                                          ROOT / "benchmarks" / "paper_data.py"]
     assert len(files) > 20
     # every CUDA source's Python wrapper and ops, and the device engine
     must_cover = [port / "core" / "semexec.py", port / "core" / "trace.py",
@@ -208,6 +211,11 @@ def test_port_imports_nothing_of_jax_or_the_reference():
                    port / "serve" / "legacy" / "serve_step.py"]
     must_cover += [port / "models" / f"{m}.py"
                    for m in ("__init__", "layers", "attention", "transformer", "model")]
+    # the sweep runner, its fault plans and the whole-trace DRAM timing ops
+    must_cover += [port / "sweep" / f"{m}.py"
+                   for m in ("__init__", "__main__", "spec", "cache", "runner", "results")]
+    must_cover += [port / "distributed" / "__init__.py", port / "distributed" / "faults.py",
+                   port / "kernels" / "dram_timing" / "ops.py"]
     for f in must_cover:
         assert f in files, f"{f.relative_to(ROOT)} is missing"
     for f in files:
