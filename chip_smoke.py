@@ -77,14 +77,47 @@ Phases, one JSON line each on stdout:
               in turns (numpy, device, device, numpy), split into host and
               kernel time by CUDA events around the wrappers; every run's
               wall and launches; the parent's peak device memory.
-7. serve_golden -- the LM serving path in f32 on the card against
+7. search  -- adaptive search (``repro_torch.sweep.search.run_search(...,
+              device=None)``) in this process.  The tiny smoke
+              (``bench_search --tiny`` through the port): an exhaustive
+              search over the 8 tiny golden scenarios with trace hashes on
+              must match ``benchmarks/golden_hashes_tiny.json``, its probe
+              rows ``run_sweep``'s, and a warm re-search must execute and
+              launch nothing.  On ``lj``: ``bench_search``'s
+              controller-sensitivity space (64 points) as a full grid in
+              batch mode, then seeds 0-2 at a quarter of it (batches of 3),
+              each on a fresh cache with the host caches cleared; every
+              probe row must equal the grid's.  Printed: the grid's wall and
+              optimum, each seed's executions, best, gap and executions to
+              the 5% band (not gated on lj), walls and launches.
+8. sweep_server -- ``python -m repro_torch.serve --port 0 --port-file
+              build/serve_port --cache build/serve_cache --workers 2`` (no
+              ``--device``: the card) as a child process, driven through
+              ``ServeClient``: (a) tab4 on ``lj`` against the sweep
+              goldens; (b) two overlapping jobs at once (numpy and device
+              engines; device alone): each unique scenario executes once,
+              the rest join or hit the cache, B2 and B3 launch in the
+              workers; (c) a search job equal to phase ``search``'s seed 0
+              (best, history, executions); (d) (a) again, all cached with
+              no launch; SIGTERM, exit 0; (e) a second server whose
+              dispatch 1 crashes its worker: a WorkerLost, one respawn,
+              (a)'s rows; SIGTERM, exit 0.  An error row or a
+              ``timing_fallback`` record fails.  The server's parent must
+              open no CUDA context (one more compute app per worker).
+              Printed: spawn to port file, to each worker's ``ready`` (its
+              CUDA context and kernel load) and to the first row; each
+              job's wall, rows/s, executed, joins, hits and the workers'
+              launches (``/stats``); ``nvidia-smi --query-compute-apps``
+              while the workers are up.  Logs in
+              ``chiprun_out/serve_{clean,faults}.log``.
+9. serve_golden -- the LM serving path in f32 on the card against
               ``tests/data/torch_golden_serve.json`` (written from the JAX
               reference): ``qwen3_0_6b.reduced()`` and qwen3 at full width
               cut to 2 layers, weights from ``interop.lm_params_numpy``.
               Teacher-forced logits of every step within the file's
               tolerance; ``ServeEngine``'s greedy tokens equal up to each
               request's first near-tie (counted and printed).
-8. serve   -- the LM serving path at full size: ``qwen3_0_6b`` at its
+10. serve  -- the LM serving path at full size: ``qwen3_0_6b`` at its
               published widths and depth (28 layers) in bf16, weights from
               ``Model.init`` with a seeded generator on the card.
               ``ServeEngine(batch=4, max_seq=1056)`` answers 8 requests of
@@ -96,8 +129,9 @@ Phases, one JSON line each on stdout:
               its plain version on the real q/k/v of layer 0 of wave 1.
               Printed: wall per wave, prefill and decode tokens per second,
               and the share of prefill time inside the attention kernel.
-9. kernels -- one line per ported kernel: launches on its path (and in the
-              sweep's engines run, ``sweep_launches``), its time at
+11. kernels -- one line per ported kernel: launches on its path (and in
+              the sweep's engines run, ``sweep_launches``, and in the sweep
+              server's workers, ``served_launches``), its time at
               the path's largest call (CUDA events), its bound, the plain
               version's time and, where one PyTorch call computes the same
               function, that call's time.  ``ms`` is the mean of calls
@@ -182,6 +216,14 @@ SWEEP_WORKERS = 2
 # ulp away from the goldens' host.  The rows must carry the value the port's
 # own graph gives on this host, within HOST_STAT_RTOL of the golden's.
 HOST_STATS = ("degree_skewness",)
+# phase search: bench_search's controller-sensitivity space on lj, a quarter
+# of it a seed, proposals of 3 (its 5% band is reported, not gated, on lj)
+SEARCH_ACCELS = ("accugraph", "foregraph", "hitgraph", "thundergp")
+SEARCH_SEEDS = (0, 1, 2)
+SEARCH_BUDGET_FRAC = 0.25
+SEARCH_BATCH = 3
+SEARCH_TOLERANCE = 0.05
+SERVER_START_S = 120.0  # spawn to port file
 HOST_STAT_RTOL = 1e-12
 
 
@@ -1096,6 +1138,24 @@ def sweep_summary(per_scenario: list[dict], launches: dict) -> dict:
                 launches={k: launches[k] for k in KERNELS})
 
 
+def tab4_golden(graphs: dict) -> tuple[dict, list[dict], dict]:
+    """The sweep goldens' axes (the paper's tab4 on lj), their rows with
+    the host statistics of this host's graph (each within
+    ``HOST_STAT_RTOL`` of the golden's, every other column exact), and the
+    statistics' drift."""
+    golden = json.loads(SWEEP_GOLDEN.read_text())
+    axes = {k: tuple(v) for k, v in golden["spec"].items()}
+    check(len(axes["graphs"]) == 1 and len(golden["rows"]) == 12,
+          f"unexpected sweep goldens: {axes}, {len(golden['rows'])} rows")
+    (graph,) = axes["graphs"]
+    host_stats = {k: getattr(graphs[graph], k) for k in HOST_STATS}
+    drift = {k: v - golden["rows"][0][k] for k, v in host_stats.items()}
+    for k, v in host_stats.items():
+        check(abs(drift[k]) <= HOST_STAT_RTOL * abs(golden["rows"][0][k]),
+              f"sweep: the host's {k} {v!r} is not the golden's {golden['rows'][0][k]!r}")
+    return axes, [{**row, **host_stats} for row in golden["rows"]], drift
+
+
 def phase_sweep(graphs: dict, smi: str) -> dict:
     """The paper's tab4 on lj through ``repro_torch.sweep.run_sweep(...,
     device=None)``, each run on a fresh cache under ``build/`` and with the
@@ -1116,18 +1176,9 @@ def phase_sweep(graphs: dict, smi: str) -> dict:
     from repro_torch.kernels import _platform
     from repro_torch.sweep import SweepSpec, result_rows, run_sweep, runner
 
-    golden = json.loads(SWEEP_GOLDEN.read_text())
-    axes = {k: tuple(v) for k, v in golden["spec"].items()}
-    check(len(axes["graphs"]) == 1 and len(golden["rows"]) == 12,
-          f"unexpected sweep goldens: {axes}, {len(golden['rows'])} rows")
+    axes, want, drift = tab4_golden(graphs)
     (graph,) = axes["graphs"]
     runner._GRAPHS[PAPER_GRAPHS[graph]] = graphs[graph]  # graph generation is set-up
-    host_stats = {k: getattr(graphs[graph], k) for k in HOST_STATS}
-    drift = {k: v - golden["rows"][0][k] for k, v in host_stats.items()}
-    for k, v in host_stats.items():
-        check(abs(drift[k]) <= HOST_STAT_RTOL * abs(golden["rows"][0][k]),
-              f"sweep: the host's {k} {v!r} is not the golden's {golden['rows'][0][k]!r}")
-    want = [{**row, **host_stats} for row in golden["rows"]]
     cache_root = ROOT / "build" / "sweep_cache"
     shutil.rmtree(cache_root, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
@@ -1236,6 +1287,393 @@ def phase_sweep(graphs: dict, smi: str) -> dict:
     return dict(info, per_scenario={k: v["per_scenario"] for k, v in runs.items()
                                     if v["per_scenario"]},
                 launches=engines_counts)
+
+
+def lj_search_space():
+    """``benchmarks/bench_search.py::search_space`` with the paper graph
+    ``lj`` for its tiny graph: 4 accelerators x {hbm, hbm x4, hbm x8} x
+    ``MEMORY_SENSITIVITY_AXES`` (mapping x page policy x pseudo-channels),
+    bfs."""
+    from repro_torch.configs.graphsim import MEMORY_SENSITIVITY_AXES
+    from repro_torch.sweep import SweepSpec
+
+    return SweepSpec(name="bench-search-lj", accelerators=SEARCH_ACCELS, graphs=("lj",),
+                     problems=("bfs",), drams=("hbm", ("hbm", 4), ("hbm", 8)),
+                     **MEMORY_SENSITIVITY_AXES)
+
+
+def search_spec(space, seed: int):
+    import math
+
+    from repro_torch.sweep import SearchSpec
+
+    return SearchSpec(space=space, budget=math.ceil(SEARCH_BUDGET_FRAC * len(space.scenarios())),
+                      batch=SEARCH_BATCH, seed=seed)
+
+
+def no_fallback(cache_dir: Path, scenarios, label: str) -> None:
+    """The cached record of every scenario is ok and was timed in its
+    batch (``timing_fallback`` is a record field, not a row column)."""
+    from repro_torch.sweep import ResultCache, scenario_hash
+
+    cache = ResultCache(str(cache_dir))
+    for s in scenarios:
+        rec = cache.get(scenario_hash(s))
+        check(rec is not None and rec.get("status") == "ok",
+              f"{label}: no ok record for {s.scenario_id}")
+        check("timing_fallback" not in rec, f"{label}: timing_fallback in {s.scenario_id}: "
+              f"{rec.get('timing_fallback')}")
+
+
+def phase_search(graphs: dict, smi: str) -> dict:
+    """Adaptive search (``repro_torch.sweep.search.run_search(...,
+    device=None)``) in this process.  The tiny smoke: an exhaustive search
+    over the 8 tiny golden scenarios with trace hashes on, every hash equal
+    to ``benchmarks/golden_hashes_tiny.json``, every probe row equal to
+    ``run_sweep``'s, a warm re-search with no execution and no launch.  On
+    ``lj``: the full grid of ``lj_search_space()`` in batch mode, then a
+    search a seed at a quarter of the grid, each on a fresh cache with the
+    host caches cleared and the launch counts zeroed just before it; every
+    probe row must equal the grid's row for its scenario hash.  The 5%
+    band of ``bench_search`` is reported on ``lj``, not gated."""
+    import shutil
+
+    import torch
+
+    from repro_torch.core import hostcache
+    from repro_torch.graph.generators import PAPER_GRAPHS
+    from repro_torch.kernels import _platform
+    from repro_torch.sweep import (ResultCache, RunnerExecutor, SearchSpec, SweepSpec,
+                                   result_rows, run_search, run_sweep, runner, scenario_hash)
+
+    runner._GRAPHS[PAPER_GRAPHS["lj"]] = graphs["lj"]  # graph generation is set-up
+    root = ROOT / "build" / "search_cache"
+    shutil.rmtree(root, ignore_errors=True)
+
+    # 1. the tiny smoke (bench_search --tiny through the port)
+    tiny = SweepSpec(name="search-tiny", accelerators=SEARCH_ACCELS,
+                     graphs=(graph_spec("tiny"),), problems=("bfs",), drams=("default", "hbm"))
+    names = {scenario_hash(s): s.scenario_id for s in tiny.scenarios()}
+    golden = json.loads(TINY_GOLDEN.read_text())
+    cache = ResultCache(str(root / "tiny"), memo_capacity=256)
+    _platform.reset_launches()
+    res = run_search(SearchSpec(space=tiny, budget=len(names), batch=2, seed=0), cache=cache,
+                     executor=RunnerExecutor(cache, with_trace_hash=True), device=None)
+    tiny_launches = _platform.launch_counts()
+    check(res.executed == len(names) == 8 and not res.errors, f"search tiny: {res.summary()}")
+    check(tiny_launches["dram_timing"] > 0, "search tiny: no dram_timing launch")
+    for p in res.probes:
+        got = cache.get(p["hash"])["trace_hash"]
+        check(got == golden[names[p["hash"]]],
+              f"search tiny: trace hash of {names[p['hash']]} {got} != golden")
+    grid = run_sweep(tiny, cache_dir=str(root / "tiny_grid"), device=None)
+    by_hash = {r.hash: row for r, row in zip(grid.results, result_rows(grid))}
+    check(all(p["row"] == by_hash[p["hash"]] for p in res.probes),
+          "search tiny: a probe row differs from run_sweep's")
+    _platform.reset_launches()
+    warm = run_search(SearchSpec(space=tiny, budget=8, batch=2, seed=3), cache=cache,
+                      device=None)
+    warm_launches = _platform.launch_counts()
+    check(warm.executed == 0 and warm.warm == 8, f"search tiny warm: {warm.summary()}")
+    check(not any(warm_launches.values()), f"search tiny warm: launches {warm_launches}")
+
+    # 2. lj: the full grid, then a quarter of it a seed
+    space = lj_search_space()
+    scenarios = space.scenarios()
+    hostcache.clear_all()
+    _platform.reset_launches()
+    t0 = time.perf_counter()
+    grid = run_sweep(space, cache_dir=str(root / "lj_grid"), mode="batch", device=None)
+    torch.cuda.synchronize()
+    grid_wall = time.perf_counter() - t0
+    grid_launches = _platform.launch_counts()
+    check(grid.n_errors == 0 and grid.n_executed == len(scenarios),
+          f"search grid: {grid.summary()}")
+    no_fallback(root / "lj_grid", scenarios, "search grid")
+    by_hash = {r.hash: row for r, row in zip(grid.results, result_rows(grid))}
+    optimum = min(row["runtime_s"] for row in by_hash.values())
+    best_id = next(r.scenario.scenario_id for r, row in zip(grid.results, result_rows(grid))
+                   if row["runtime_s"] == optimum)
+    seeds = []
+    for seed in SEARCH_SEEDS:
+        hostcache.clear_all()
+        _platform.reset_launches()
+        t0 = time.perf_counter()
+        sres = run_search(search_spec(space, seed), cache_dir=str(root / f"lj_seed{seed}"),
+                          device=None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _platform.launch_counts()
+        check(not sres.errors and sres.executed <= sres.budget,
+              f"search seed {seed}: {sres.summary()}")
+        check(launches["dram_timing"] > 0, f"search seed {seed}: no dram_timing launch")
+        for p in sres.probes:
+            check(p["row"] == by_hash[p["hash"]],
+                  f"search seed {seed}: probe {p['scenario_id']} differs from the grid's row")
+        no_fallback(root / f"lj_seed{seed}",
+                    [s for s in scenarios if scenario_hash(s) in
+                     {p["hash"] for p in sres.probes}], f"search seed {seed}")
+        to_opt = next((h["executed"] for h in sres.history
+                       if h["best"] is not None and h["best"] / optimum - 1 <= SEARCH_TOLERANCE),
+                      None)
+        seeds.append(dict(seed=seed, executed=sres.executed, rounds=sres.rounds,
+                          best=sres.best["value"], best_scenario=sres.best["scenario_id"],
+                          gap=sres.best["value"] / optimum - 1,
+                          executions_to_optimum=to_opt, wall_s=wall,
+                          wall_s_per_probe=wall / max(1, sres.executed), launches=launches,
+                          answer=json.loads(json.dumps(dict(
+                              best=sres.best, history=sres.history,
+                              executed=sres.executed)))))
+    info = dict(card=smi, tiny=dict(scenarios=8, trace_hashes="golden", rows="run_sweep",
+                                    launches=tiny_launches, warm_executed=warm.executed,
+                                    warm_launches=warm_launches),
+                space=space.name, raw_points=space.n_points, pool=len(scenarios),
+                budget=search_spec(space, 0).budget,
+                grid=dict(wall_s=grid_wall, s_per_scenario=grid_wall / len(scenarios),
+                          optimum=optimum, optimum_scenario=best_id, launches=grid_launches),
+                seeds=[{k: v for k, v in x.items() if k != "answer"} for x in seeds],
+                search_wall_s=sum(x["wall_s"] for x in seeds),
+                search_executed=sum(x["executed"] for x in seeds))
+    emit(dict(phase="search", **info))
+    return dict(info, seed0=seeds[0]["answer"])
+
+
+def start_server(label: str, cache: Path, *extra: str):
+    """``python -m repro_torch.serve`` as a child process with no
+    ``--device`` (the card) and its logs under ``chiprun_out/``; returns
+    it, its address, the seconds from spawn to its port file, and the
+    spawn's host and wall clocks."""
+    import os
+    import shutil
+
+    shutil.rmtree(cache, ignore_errors=True)
+    port_file = ROOT / "build" / "serve_port"
+    port_file.unlink(missing_ok=True)
+    OUT_DIR.mkdir(exist_ok=True)
+    log = open(OUT_DIR / f"serve_{label}.log", "w")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0, t0_wall = time.perf_counter(), time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.serve", "--port", "0", "--port-file",
+         str(port_file.relative_to(ROOT)), "--cache", str(cache.relative_to(ROOT)),
+         "--workers", str(SWEEP_WORKERS), *extra],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    while not (port_file.exists() and port_file.read_text().strip()):
+        if proc.poll() is not None or time.perf_counter() - t0 > SERVER_START_S:
+            proc.kill()
+            fail(f"sweep_server {label}: no port file (exit {proc.poll()}); "
+                 f"see chiprun_out/serve_{label}.log")
+        time.sleep(0.05)
+    return proc, port_file.read_text().strip(), time.perf_counter() - t0, t0, t0_wall
+
+
+def worker_starts(label: str, t0_wall: float) -> list[dict]:
+    """The ``worker_ready`` lines of a server's log: each worker's seconds
+    from the server's spawn to ready, its CUDA context and kernel load."""
+    out = []
+    for line in (OUT_DIR / f"serve_{label}.log").read_text().splitlines():
+        if '"event":"worker_ready"' in line:
+            ev = json.loads(line)
+            out.append(dict(ready_s_from_spawn=ev["ts"] - t0_wall,
+                            **{k: ev.get(k) for k in ("context_s", "kernels_s", "built")}))
+    return out
+
+
+def stop_server(proc, label: str) -> float:
+    """SIGTERM: the server drains and must exit 0; returns the seconds."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"sweep_server {label}: no exit within 120 s of SIGTERM")
+    check(rc == 0, f"sweep_server {label}: exit {rc} after SIGTERM")
+    return time.perf_counter() - t0
+
+
+def served_job(client, spec, label: str, cache: Path):
+    """Stream one sweep job; the rows must all arrive, none an error and
+    none from a ``timing_fallback`` record."""
+    from repro_torch.serve import JobResult
+
+    t0 = time.perf_counter()
+    events, first = [], None
+    for ev in client.submit(spec):
+        if ev["type"] == "row" and first is None:
+            first = time.perf_counter()
+        events.append(ev)
+    wall = time.perf_counter() - t0
+    res = JobResult(events[0]["job_id"], events[0]["total"], events[0].get("skipped", []),
+                    events, events[-1]["type"])
+    check(res.outcome == "done" and len(res.rows) == res.total == len(spec.scenarios()),
+          f"sweep_server {label}: {res.outcome} with {len(res.rows)}/{res.total} rows")
+    check(res.n_errors == 0, f"sweep_server {label}: error rows: "
+          + next((e["row"].get("error", "")[-800:] for e in res.row_events
+                  if e["status"] == "error"), ""))
+    no_fallback(cache, spec.scenarios(), f"sweep_server {label}")
+    return res, dict(wall_s=wall, rows=len(res.rows), rows_per_s=len(res.rows) / wall,
+                     executed=res.statuses.count("ok"), cached=res.n_cached), first
+
+
+def stats_delta(before: dict, after: dict) -> dict:
+    keys = ("executed_ok", "cache_hits", "inflight_joins", "dedup_joins")
+    return dict({k: after["counters"].get(k, 0) - before["counters"].get(k, 0) for k in keys},
+                launches={k: after["launches"][k] - before["launches"][k]
+                          for k in after["launches"]})
+
+
+def compute_apps() -> list[str]:
+    proc = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return [line.strip() for line in proc.stdout.splitlines() if line.strip()]
+
+
+def phase_sweep_server(graphs: dict, smi: str, search: dict) -> dict:
+    """The sweep server (``python -m repro_torch.serve``, 2 warm spawn
+    workers on the card) driven through ``ServeClient``: (a) tab4 on lj
+    against the goldens; (b) two overlapping jobs at once (numpy and device
+    engines, and device alone: every unique scenario executes once, the
+    rest join or hit, B2 and B3 run in the workers); (c) a search job equal
+    to phase ``search``'s seed 0; (d) (a) again, all cached with no launch;
+    SIGTERM, exit 0; (e) a second server whose dispatch 1 crashes its
+    worker: a WorkerLost, one respawn, (a)'s rows; SIGTERM, exit 0.
+    Launches are the workers', summed by the server (``/stats``)."""
+    import threading
+
+    from repro_torch.serve import ServeClient
+    from repro_torch.sweep import SweepSpec
+
+    axes, want, _ = tab4_golden(graphs)
+    tab4 = SweepSpec(name="tab4", **axes)
+    cache = ROOT / "build" / "serve_cache"
+    apps_before = compute_apps()
+    proc, address, port_s, t_spawn, t_wall = start_server("clean", cache)
+    jobs: dict = {}
+    try:
+        client = ServeClient(address)
+        client.wait_ready(deadline_s=60)
+        base = client.stats()
+        check(base["device"] == "cuda", f"sweep_server: device {base['device']}")
+        # (a) tab4 on lj: the first rows pay each worker's start
+        res_a, jobs["a"], first = served_job(client, tab4, "a", cache)
+        jobs["a"]["first_row_s_from_spawn"] = first - t_spawn
+        check(res_a.rows == want, "sweep_server a: rows differ from the goldens: "
+              + next((f"{x} != {y}" for x, y in zip(res_a.rows, want) if x != y), ""))
+        apps = compute_apps()
+        if apps_before:  # the server's parent opens no CUDA context
+            check(len(apps) == len(apps_before) + SWEEP_WORKERS,
+                  f"sweep_server: compute apps {apps_before} -> {apps}")
+        after_a = client.stats()
+        jobs["a"].update(stats_delta(base, after_a))
+        check(jobs["a"]["launches"]["dram_timing"] > 0, "sweep_server a: no B1 in the workers")
+
+        # (b) two overlapping jobs at once
+        both = SweepSpec(name="tab4", engines=("numpy", "device"), **axes)
+        device_only = SweepSpec(name="tab4", engines=("device",), **axes)
+        out: dict = {}
+
+        def run(key, spec):
+            try:
+                out[key] = served_job(client_b[key], spec, f"b_{key}", cache)
+            except SystemExit:
+                out[key] = None
+
+        client_b = {"both": ServeClient(address), "device": ServeClient(address)}
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=("both", both)),
+                   threading.Thread(target=run, args=("device", device_only))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall_b = time.perf_counter() - t0
+        check(all(out.get(k) for k in ("both", "device")), "sweep_server b: a job failed")
+        after_b = client.stats()
+        jobs["b"] = dict(stats_delta(after_a, after_b), wall_s=wall_b,
+                         rows=sum(out[k][1]["rows"] for k in out),
+                         jobs={k: out[k][1] for k in out})
+        jobs["b"]["rows_per_s"] = jobs["b"]["rows"] / wall_b
+        rows_both, rows_device = out["both"][0].rows, out["device"][0].rows
+        check(rows_both[0::2] == want, "sweep_server b: numpy rows differ from the goldens")
+        check([{**r, "engine": "numpy"} for r in rows_device] == want,
+              "sweep_server b: device rows differ from the goldens but for engine")
+        check(rows_both[1::2] == rows_device, "sweep_server b: the two jobs' device rows differ")
+        check(jobs["b"]["executed_ok"] == len(want),
+              f"sweep_server b: executed {jobs['b']['executed_ok']}, not once each")
+        check(jobs["b"]["inflight_joins"] + jobs["b"]["cache_hits"] == 2 * len(want),
+              f"sweep_server b: joins {jobs['b']['inflight_joins']} + hits "
+              f"{jobs['b']['cache_hits']}")
+        for name in ("dram_timing", "edge_update", "spmv"):
+            check(jobs["b"]["launches"][name] > 0, f"sweep_server b: no {name} in the workers")
+
+        # (c) a search job: phase search's seed 0, answered by the server
+        space = lj_search_space()
+        t0 = time.perf_counter()
+        res_c = client.run_search(search_spec(space, 0))
+        wall_c = time.perf_counter() - t0
+        after_c = client.stats()
+        check(res_c.outcome == "done" and res_c.result is not None,
+              f"sweep_server c: {res_c.outcome} {res_c.error}")
+        for key in ("best", "history", "executed"):
+            check(res_c.result[key] == search["seed0"][key],
+                  f"sweep_server c: {key} differs from the in-process search")
+        no_fallback(cache, [s for s in space.scenarios()
+                            if s.scenario_id in {p["scenario_id"]
+                                                 for p in res_c.result["probes"]}],
+                    "sweep_server c")
+        jobs["c"] = dict(stats_delta(after_b, after_c), wall_s=wall_c,
+                         executed=res_c.result["executed"], rounds=res_c.result["rounds"],
+                         best=res_c.result["best"]["value"],
+                         wall_s_per_probe=wall_c / max(1, res_c.result["executed"]))
+
+        # (d) (a) again: all cached, no launch in the workers
+        res_d, jobs["d"], _ = served_job(client, tab4, "d", cache)
+        after_d = client.stats()
+        jobs["d"].update(stats_delta(after_c, after_d))
+        check(res_d.statuses == ["cached"] * len(want) and res_d.rows == res_a.rows,
+              "sweep_server d: not all cached, or rows differ")
+        check(not any(jobs["d"]["launches"].values()),
+              f"sweep_server d: launches {jobs['d']['launches']}")
+        clean_stats = after_d
+    finally:
+        drain_s = stop_server(proc, "clean") if proc.poll() is None else None
+
+    # (e) a second server whose dispatch 1 crashes its worker
+    plan = json.dumps(dict(seed=0, rules=[dict(site="worker.chunk", kind="crash", at=[1])]))
+    fcache = ROOT / "build" / "serve_cache_faults"
+    fproc, faddress, fport_s, ft_spawn, ft_wall = start_server("faults", fcache, "--faults",
+                                                               plan)
+    try:
+        fclient = ServeClient(faddress)
+        fclient.wait_ready(deadline_s=60)
+        res_e, jobs["e"], first = served_job(fclient, tab4, "e", fcache)
+        jobs["e"]["first_row_s_from_spawn"] = first - ft_spawn
+        fstats = fclient.stats()
+        check(res_e.rows == res_a.rows, "sweep_server e: rows differ from the clean server's")
+        faults = fstats["faults"]
+        check(faults["faults_injected"] == 1 and faults["chunks_lost"] >= 1
+              and faults["workers_lost"] == 1 and faults["worker_respawns"] == 1,
+              f"sweep_server e: faults {faults}")
+        jobs["e"].update(faults=faults, launches=fstats["launches"])
+    finally:
+        fdrain_s = stop_server(fproc, "faults") if fproc.poll() is None else None
+
+    served = {k: clean_stats["launches"][k] + fstats["launches"][k] for k in KERNELS}
+    info = dict(card=smi, workers=SWEEP_WORKERS, spec=f"tab4 on {axes['graphs'][0]}",
+                port_file_s=port_s, faulted_port_file_s=fport_s,
+                worker_starts=worker_starts("clean", t_wall),
+                faulted_worker_starts=worker_starts("faults", ft_wall), jobs=jobs,
+                compute_apps_before=apps_before, compute_apps=apps, drain_s=drain_s,
+                faulted_drain_s=fdrain_s, served_launches=served,
+                counters={k: clean_stats["counters"].get(k, 0) for k in (
+                    "executed_ok", "cache_hits", "inflight_joins", "rows_streamed")})
+    emit(dict(phase="sweep_server", **info))
+    return info
 
 
 def edge_update_library(args):
@@ -1731,14 +2169,20 @@ def main() -> None:
     # 6. the sweep runner: the paper's tab4 on lj, every mode and engine
     sweep = phase_sweep(graphs, smi)
 
-    # 7. the LM serving path in f32 against the reference's goldens
+    # 7. adaptive search in this process: the tiny smoke, then lj
+    search = phase_search(graphs, smi)
+
+    # 8. the sweep server: warm spawn workers on the card, five jobs
+    sweep_server = phase_sweep_server(graphs, smi, search)
+
+    # 9. the LM serving path in f32 against the reference's goldens
     serve_golden = phase_serve_golden(dev)
 
-    # 8. the LM serving path at full size
+    # 10. the LM serving path at full size
     serve = phase_serve(dev, smi)
     worst["attention"] = max(worst["attention"], serve["real_qkv_err"])
 
-    # 9. kernel timing at each path's largest call
+    # 11. kernel timing at each path's largest call
     timing = {"dram_timing": phase_kernel_timing(dev, info["batch"]),
               "edge_update": phase_edge_update_timing(
                   device_info["largest"]["edge_update"][1], device_info["foregraph_call"]),
@@ -1755,7 +2199,7 @@ def main() -> None:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, scenarios=rows, device_pairs=device_rows, sweep=sweep,
-             serve_golden=serve_golden, serve=serve, kernel_timing=timing,
+             search=search, sweep_server=sweep_server, serve_golden=serve_golden, serve=serve, kernel_timing=timing,
              attention_sass=sass),
         indent=1) + "\n")
 
@@ -1771,6 +2215,7 @@ def main() -> None:
         bound_ms=timing[name]["bound_ms"], bound_by=timing[name]["bound_by"],
         library_ms=timing[name].get("library_ms"), shape=timing[name]["shape"],
         sweep_launches=sweep["launches"][name],
+        served_launches=sweep_server["served_launches"][name],
         **{key: timing[name][key] for key in EXTRA_KEYS if key in timing[name]},
         card=smi) for name in KERNELS]))
     print(smi, flush=True)

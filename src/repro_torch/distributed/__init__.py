@@ -1,19 +1,23 @@
-"""Distribution in the port: so far the deterministic fault-injection
-harness (:mod:`repro_torch.distributed.faults`) that the sweep runner
-consults when an :class:`~repro_torch.sweep.runner.ExecutionPolicy`
-carries a fault plan.
+"""Distribution in the port: the supervised spawn-context worker pool the
+sweep server shards scenario chunks across
+(:mod:`repro_torch.distributed.workpool`), and the deterministic
+fault-injection harness that exercises its recovery paths and that the
+sweep runner consults when an
+:class:`~repro_torch.sweep.runner.ExecutionPolicy` carries a fault plan
+(:mod:`repro_torch.distributed.faults`).
 
-The reference's worker pools (``workpool``, ``remote``) and its sharding
-rules are not ported yet, so their names are not listed here.  Exports
-resolve lazily, as the reference's do: spawn-context worker children
-import this package on their way to a submodule and should pay for
-nothing else.
+The reference's multi-host pool (``remote``) and its sharding rules are
+not ported yet, so their names are not listed here.  Exports resolve
+lazily, as the reference's do: spawn-context worker children import this
+package on their way to ``workpool`` and should pay for nothing else.
 """
 from __future__ import annotations
 
-__all__ = ["FaultPlan", "FaultRule"]
+__all__ = ["FaultPlan", "FaultRule", "WorkerLost", "WorkerPool"]
 
 _LAZY = {
+    "WorkerPool": ("repro_torch.distributed.workpool", "WorkerPool"),
+    "WorkerLost": ("repro_torch.distributed.workpool", "WorkerLost"),
     "FaultPlan": ("repro_torch.distributed.faults", "FaultPlan"),
     "FaultRule": ("repro_torch.distributed.faults", "FaultRule"),
 }

@@ -32,10 +32,12 @@ a **kind**:
              and host re-registration
 ===========  ================================================================
 
-The ``"worker.chunk"`` and ``"remote"`` sites belong to the worker pools
-of the sweep server, which the port does not carry yet; the schedule
-format, and what each kind means, are the same as the reference's
-(``repro/distributed/faults.py``), so one plan drives both packages.
+The ``"worker.chunk"`` site is consulted by the sweep server's scheduler
+at every chunk dispatch (:mod:`repro_torch.serve.scheduler`); the
+``"remote"`` site belongs to the reference's multi-host pool, which the
+port does not carry yet.  The schedule format, and what each kind means,
+are the same as the reference's (``repro/distributed/faults.py``), so one
+plan drives both packages.
 
 Rules select occurrences three ways, all deterministic: ``at`` (explicit
 occurrence indices at the site — for chunk dispatches, the scheduler's

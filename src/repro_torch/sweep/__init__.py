@@ -15,12 +15,14 @@ the reference's ``repro.sweep``:
   on one device with per-scenario failure isolation and
   resume-after-interrupt,
 - :mod:`repro_torch.sweep.results` — deterministic row aggregation,
-  CSV/JSON export, rank/Spearman validation helpers.
-
-The reference's adaptive search (``repro.sweep.search``) is not ported yet.
+  CSV/JSON export, rank/Spearman validation helpers,
+- :mod:`repro_torch.sweep.search` — adaptive (surrogate-driven) search that
+  answers design-space queries on a fraction of the grid, its probes
+  byte-identical to grid rows.
 
 CLI: ``python -m repro_torch.sweep --accels accugraph,hitgraph --graphs sd
---problems bfs`` (``--device cpu`` without a card).
+--problems bfs`` (``--device cpu`` without a card), and ``python -m
+repro_torch.sweep search ...`` for adaptive search.
 """
 from repro_torch.sweep.cache import ResultCache, scenario_hash, scenario_key
 from repro_torch.sweep.results import (
@@ -43,15 +45,26 @@ from repro_torch.sweep.runner import (
     plan_scenarios,
     run_sweep,
 )
+from repro_torch.sweep.search import (
+    RunnerExecutor,
+    SearchAborted,
+    SearchResult,
+    SearchSpec,
+    run_search,
+)
 from repro_torch.sweep.spec import ConfigOverride, Scenario, Skipped, SweepSpec
 
 __all__ = [
     "ConfigOverride",
     "ExecutionPolicy",
     "ResultCache",
+    "RunnerExecutor",
     "Scenario",
     "ScenarioPlan",
     "ScenarioResult",
+    "SearchAborted",
+    "SearchResult",
+    "SearchSpec",
     "Skipped",
     "SweepResult",
     "SweepSpec",
@@ -62,6 +75,7 @@ __all__ = [
     "plan_scenarios",
     "rank",
     "result_rows",
+    "run_search",
     "run_sweep",
     "scenario_hash",
     "scenario_key",

@@ -21,8 +21,10 @@ combinations a model rejects, e.g. ForeGraph past its 65,536-vertex
 interval cap, are likewise filtered); ``--list`` prints the expanded
 scenarios (and what was filtered out) without simulating anything.
 
-The reference's ``search`` subcommand (adaptive search) is not ported
-yet: ``python -m repro_torch.sweep search ...`` exits with code 2.
+``python -m repro_torch.sweep search`` takes the same axis flags (and
+``--device``) but runs an *adaptive search* over the expanded space —
+executing only a budgeted fraction of it to answer an objective or
+frontier query (see :mod:`repro_torch.sweep.search.cli`).
 """
 from __future__ import annotations
 
@@ -146,9 +148,8 @@ def main(argv: list[str] | None = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "search":
-        print("error: adaptive search is not ported yet (ROADMAP A8)",
-              file=sys.stderr)
-        return 2
+        from repro_torch.sweep.search.cli import main as search_main
+        return search_main(argv[1:])
     ap = argparse.ArgumentParser(prog="python -m repro_torch.sweep",
                                  description=__doc__)
     add_spec_args(ap)

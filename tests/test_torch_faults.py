@@ -109,11 +109,17 @@ def test_corrupt_records_and_delay_match_reference():
 
 
 def test_package_exports_only_what_resolves():
-    assert sorted(distributed.__all__) == ["FaultPlan", "FaultRule"]
+    from repro_torch.distributed import workpool
+
+    assert sorted(distributed.__all__) == ["FaultPlan", "FaultRule", "WorkerLost",
+                                           "WorkerPool"]
     assert distributed.FaultPlan is faults.FaultPlan
     assert distributed.FaultRule is faults.FaultRule
-    with pytest.raises(AttributeError):
-        distributed.WorkerPool  # noqa: B018 - not ported yet
+    assert distributed.WorkerPool is workpool.WorkerPool
+    assert distributed.WorkerLost is workpool.WorkerLost
+    for name in ("RemoteWorkerPool", "WorkerHostAgent", "param_specs"):
+        with pytest.raises(AttributeError):
+            getattr(distributed, name)  # remote and sharding: not ported yet
 
 
 # ---- policied execution through a fault plan ---------------------------------

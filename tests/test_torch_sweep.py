@@ -414,9 +414,18 @@ def test_cli_list_and_clean_errors(capsys):
     assert "unknown accelerator" in capsys.readouterr().err
 
 
-def test_cli_search_is_not_ported(capsys):
-    assert cli.main(["search", "--graphs", "sd"]) == 2
-    assert "adaptive search is not ported yet (ROADMAP A8)" in capsys.readouterr().err
+def test_cli_search_is_not_ported(tmp_path, capsys):
+    """The ``search`` subcommand (ported since; the name is kept) runs on
+    the CPU with ``--device cpu``: every point of a 2-point space, then
+    again all warm from the cache."""
+    argv = ["search", "--accels", "accugraph,hitgraph", "--graphs", "sd", "--budget", "2",
+            "--device", "cpu", "--cache", str(tmp_path / "c"), "--out", str(tmp_path / "o")]
+    assert cli.main(argv) == 0
+    assert "search[objective]: 2 executed (+0 cached, +0 warm) of 2" in \
+        capsys.readouterr().out
+    assert (tmp_path / "o" / "sweep_probes.csv").exists()
+    assert cli.main(argv) == 0
+    assert "0 executed (+0 cached, +2 warm) of 2" in capsys.readouterr().out
 
 
 # ---- the golden rows chip_smoke.py holds the card against ----------------------
