@@ -110,14 +110,37 @@ Phases, one JSON line each on stdout:
               launches (``/stats``); ``nvidia-smi --query-compute-apps``
               while the workers are up.  Logs in
               ``chiprun_out/serve_{clean,faults}.log``.
-9. serve_golden -- the LM serving path in f32 on the card against
+9. multihost -- multi-host serving: ``python -m repro_torch.serve --port 0
+              --worker-listen 127.0.0.1:0 --cache build/multihost_cache
+              --chunk-size 1 --trace-hashes`` and two worker hosts
+              (``python -m repro_torch.serve worker --connect <pool>
+              --seats 1 --name h0|h1``) as children, none given
+              ``--device`` (the card), so two seats on the one card, each its
+              own CUDA context.  (a) the 8 tiny golden scenarios: trace
+              hashes equal to ``benchmarks/golden_hashes_tiny.json``, both
+              hosts serve chunks, a resubmission all cached with no launch;
+              (b) tab4 on ``lj`` against the sweep goldens, B1 launched by
+              the hosts (summed in ``/stats``); (c) tab4 with the numpy and
+              device engines, B2 and B3 launched by the hosts; ``--shutdown``:
+              the request, the server and both hosts exit 0.  Then a second
+              server and hosts on ``build/multihost_cache_kill``: (d) tab4
+              with h0 SIGKILLed once it holds a chunk, the golden rows and a
+              host lost; (e) ``--shutdown``: the server and h1 exit 0.  An
+              error row or a ``timing_fallback`` record fails.  The server's
+              and the agents' own processes open no CUDA context (one more
+              compute app a seat), and every context is gone after the
+              phase.  Printed: spawn to the port files, each host's spawn to
+              registration and to its seat's ``worker_ready`` (context and
+              kernel load), each job's wall, rows/s, chunks by host and
+              launches.  Logs in ``chiprun_out/multihost_*.log``.
+10. serve_golden -- the LM serving path in f32 on the card against
               ``tests/data/torch_golden_serve.json`` (written from the JAX
               reference): ``qwen3_0_6b.reduced()`` and qwen3 at full width
               cut to 2 layers, weights from ``interop.lm_params_numpy``.
               Teacher-forced logits of every step within the file's
               tolerance; ``ServeEngine``'s greedy tokens equal up to each
               request's first near-tie (counted and printed).
-10. serve  -- the LM serving path at full size: ``qwen3_0_6b`` at its
+11. serve  -- the LM serving path at full size: ``qwen3_0_6b`` at its
               published widths and depth (28 layers) in bf16, weights from
               ``Model.init`` with a seeded generator on the card.
               ``ServeEngine(batch=4, max_seq=1056)`` answers 8 requests of
@@ -129,9 +152,10 @@ Phases, one JSON line each on stdout:
               its plain version on the real q/k/v of layer 0 of wave 1.
               Printed: wall per wave, prefill and decode tokens per second,
               and the share of prefill time inside the attention kernel.
-11. kernels -- one line per ported kernel: launches on its path (and in
-              the sweep's engines run, ``sweep_launches``, and in the sweep
-              server's workers, ``served_launches``), its time at
+12. kernels -- one line per ported kernel: launches on its path (and in
+              the sweep's engines run, ``sweep_launches``, in the sweep
+              server's workers, ``served_launches``, and in the multi-host
+              phase's hosts, ``multihost_launches``), its time at
               the path's largest call (CUDA events), its bound, the plain
               version's time and, where one PyTorch call computes the same
               function, that call's time.  ``ms`` is the mean of calls
@@ -224,6 +248,8 @@ SEARCH_BUDGET_FRAC = 0.25
 SEARCH_BATCH = 3
 SEARCH_TOLERANCE = 0.05
 SERVER_START_S = 120.0  # spawn to port file
+# phase multihost: worker hosts of one seat each, all on the one card
+MULTIHOST_HOSTS = ("h0", "h1")
 HOST_STAT_RTOL = 1e-12
 
 
@@ -1438,28 +1464,38 @@ def phase_search(graphs: dict, smi: str) -> dict:
     return dict(info, seed0=seeds[0]["answer"])
 
 
+def serve_env() -> dict:
+    import os
+
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+
+def serve_child(log_name: str, *args: str):
+    """``python -m repro_torch.serve <args>`` as a child with no
+    ``--device`` (the card), stdout and stderr in ``chiprun_out/<log>``;
+    returns it and its spawn's host and wall clocks."""
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / log_name, "w") as log:
+        t0, t0_wall = time.perf_counter(), time.time()
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.serve", *args], cwd=ROOT,
+                                env=serve_env(), stdout=log, stderr=subprocess.STDOUT)
+    return proc, t0, t0_wall
+
+
 def start_server(label: str, cache: Path, *extra: str):
     """``python -m repro_torch.serve`` as a child process with no
     ``--device`` (the card) and its logs under ``chiprun_out/``; returns
     it, its address, the seconds from spawn to its port file, and the
     spawn's host and wall clocks."""
-    import os
     import shutil
 
     shutil.rmtree(cache, ignore_errors=True)
     port_file = ROOT / "build" / "serve_port"
     port_file.unlink(missing_ok=True)
-    OUT_DIR.mkdir(exist_ok=True)
-    log = open(OUT_DIR / f"serve_{label}.log", "w")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    t0, t0_wall = time.perf_counter(), time.time()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.serve", "--port", "0", "--port-file",
-         str(port_file.relative_to(ROOT)), "--cache", str(cache.relative_to(ROOT)),
-         "--workers", str(SWEEP_WORKERS), *extra],
-        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
-    log.close()
+    proc, t0, t0_wall = serve_child(
+        f"serve_{label}.log", "--port", "0", "--port-file", str(port_file.relative_to(ROOT)),
+        "--cache", str(cache.relative_to(ROOT)), "--workers", str(SWEEP_WORKERS), *extra)
     while not (port_file.exists() and port_file.read_text().strip()):
         if proc.poll() is not None or time.perf_counter() - t0 > SERVER_START_S:
             proc.kill()
@@ -1498,7 +1534,8 @@ def stop_server(proc, label: str) -> float:
 
 def served_job(client, spec, label: str, cache: Path):
     """Stream one sweep job; the rows must all arrive, none an error and
-    none from a ``timing_fallback`` record."""
+    none from a ``timing_fallback`` record.  ``label`` prefixes every
+    failure (``"<phase> <job>"``)."""
     from repro_torch.serve import JobResult
 
     t0 = time.perf_counter()
@@ -1511,11 +1548,11 @@ def served_job(client, spec, label: str, cache: Path):
     res = JobResult(events[0]["job_id"], events[0]["total"], events[0].get("skipped", []),
                     events, events[-1]["type"])
     check(res.outcome == "done" and len(res.rows) == res.total == len(spec.scenarios()),
-          f"sweep_server {label}: {res.outcome} with {len(res.rows)}/{res.total} rows")
-    check(res.n_errors == 0, f"sweep_server {label}: error rows: "
+          f"{label}: {res.outcome} with {len(res.rows)}/{res.total} rows")
+    check(res.n_errors == 0, f"{label}: error rows: "
           + next((e["row"].get("error", "")[-800:] for e in res.row_events
                   if e["status"] == "error"), ""))
-    no_fallback(cache, spec.scenarios(), f"sweep_server {label}")
+    no_fallback(cache, spec.scenarios(), label)
     return res, dict(wall_s=wall, rows=len(res.rows), rows_per_s=len(res.rows) / wall,
                      executed=res.statuses.count("ok"), cached=res.n_cached), first
 
@@ -1560,7 +1597,7 @@ def phase_sweep_server(graphs: dict, smi: str, search: dict) -> dict:
         base = client.stats()
         check(base["device"] == "cuda", f"sweep_server: device {base['device']}")
         # (a) tab4 on lj: the first rows pay each worker's start
-        res_a, jobs["a"], first = served_job(client, tab4, "a", cache)
+        res_a, jobs["a"], first = served_job(client, tab4, "sweep_server a", cache)
         jobs["a"]["first_row_s_from_spawn"] = first - t_spawn
         check(res_a.rows == want, "sweep_server a: rows differ from the goldens: "
               + next((f"{x} != {y}" for x, y in zip(res_a.rows, want) if x != y), ""))
@@ -1579,7 +1616,7 @@ def phase_sweep_server(graphs: dict, smi: str, search: dict) -> dict:
 
         def run(key, spec):
             try:
-                out[key] = served_job(client_b[key], spec, f"b_{key}", cache)
+                out[key] = served_job(client_b[key], spec, f"sweep_server b_{key}", cache)
             except SystemExit:
                 out[key] = None
 
@@ -1632,7 +1669,7 @@ def phase_sweep_server(graphs: dict, smi: str, search: dict) -> dict:
                          wall_s_per_probe=wall_c / max(1, res_c.result["executed"]))
 
         # (d) (a) again: all cached, no launch in the workers
-        res_d, jobs["d"], _ = served_job(client, tab4, "d", cache)
+        res_d, jobs["d"], _ = served_job(client, tab4, "sweep_server d", cache)
         after_d = client.stats()
         jobs["d"].update(stats_delta(after_c, after_d))
         check(res_d.statuses == ["cached"] * len(want) and res_d.rows == res_a.rows,
@@ -1651,7 +1688,7 @@ def phase_sweep_server(graphs: dict, smi: str, search: dict) -> dict:
     try:
         fclient = ServeClient(faddress)
         fclient.wait_ready(deadline_s=60)
-        res_e, jobs["e"], first = served_job(fclient, tab4, "e", fcache)
+        res_e, jobs["e"], first = served_job(fclient, tab4, "sweep_server e", fcache)
         jobs["e"]["first_row_s_from_spawn"] = first - ft_spawn
         fstats = fclient.stats()
         check(res_e.rows == res_a.rows, "sweep_server e: rows differ from the clean server's")
@@ -1673,6 +1710,253 @@ def phase_sweep_server(graphs: dict, smi: str, search: dict) -> dict:
                 counters={k: clean_stats["counters"].get(k, 0) for k in (
                     "executed_ok", "cache_hits", "inflight_joins", "rows_streamed")})
     emit(dict(phase="sweep_server", **info))
+    return info
+
+
+def host_events(label: str, name: str) -> dict:
+    """The first line of each structured event in a host's log."""
+    out: dict = {}
+    path = OUT_DIR / f"multihost_{label}_{name}.log"
+    for line in path.read_text().splitlines() if path.exists() else ():
+        if line.startswith("{"):
+            try:
+                ev = json.loads(line)
+            except ValueError:
+                continue
+            out.setdefault(ev.get("event"), ev)
+    return out
+
+
+def start_multihost(label: str, cache: Path) -> dict:
+    """A server with ``--worker-listen`` (it executes nothing) and the
+    worker hosts ``MULTIHOST_HOSTS`` of one seat each, every process a
+    child with no ``--device``; waits for both port files, then for every
+    host's registration and its seat's ``worker_ready``."""
+    import shutil
+
+    from repro_torch.serve import ServeClient
+
+    shutil.rmtree(cache, ignore_errors=True)
+    files = [ROOT / "build" / f"multihost_{k}" for k in ("port", "worker_port")]
+    for f in files:
+        f.unlink(missing_ok=True)
+    server, t0, _ = serve_child(
+        f"multihost_{label}.log", "--port", "0", "--port-file", str(files[0].relative_to(ROOT)),
+        "--worker-listen", "127.0.0.1:0", "--worker-port-file",
+        str(files[1].relative_to(ROOT)), "--cache", str(cache.relative_to(ROOT)),
+        "--chunk-size", "1", "--trace-hashes")
+    top = dict(label=label, server=server, hosts={})
+    while not all(f.exists() and f.read_text().strip() for f in files):
+        if server.poll() is not None or time.perf_counter() - t0 > SERVER_START_S:
+            stop_multihost(top)
+            fail(f"multihost {label}: no port files (exit {server.poll()}); "
+                 f"see chiprun_out/multihost_{label}.log")
+        time.sleep(0.05)
+    top["port_files_s"] = time.perf_counter() - t0
+    top["address"], top["pool"] = (f.read_text().strip() for f in files)
+    for name in MULTIHOST_HOSTS:
+        proc, h0, h0_wall = serve_child(f"multihost_{label}_{name}.log", "worker", "--connect",
+                                        top["pool"], "--seats", "1", "--name", name)
+        top["hosts"][name] = dict(proc=proc, t0=h0, t0_wall=h0_wall)
+    client = ServeClient(top["address"])
+    client.wait_ready(deadline_s=60)
+    while True:
+        events = {name: host_events(label, name) for name in MULTIHOST_HOSTS}
+        if all({"agent_registered", "worker_ready"} <= set(ev) for ev in events.values()):
+            break
+        dead = [n for n, h in top["hosts"].items() if h["proc"].poll() is not None]
+        if dead or time.perf_counter() - t0 > SERVER_START_S:
+            stop_multihost(top)
+            fail(f"multihost {label}: hosts {dead or list(events)} never ready; see "
+                 f"chiprun_out/multihost_{label}_*.log")
+        time.sleep(0.1)
+    hosts = client.stats()["workers"]["hosts"]
+    check(sorted(hosts) == sorted(MULTIHOST_HOSTS), f"multihost {label}: hosts {sorted(hosts)}")
+    for name, h in top["hosts"].items():
+        check(hosts[name]["device"] == "cuda", f"multihost {label}: {name} on {hosts[name]}")
+        ev = events[name]
+        h.update(registered_s_from_spawn=ev["agent_registered"]["ts"] - h["t0_wall"],
+                 ready_s_from_spawn=ev["worker_ready"]["ts"] - h["t0_wall"],
+                 **{k: ev["worker_ready"].get(k) for k in ("context_s", "kernels_s", "built")})
+    top["client"] = client
+    return top
+
+
+def stop_multihost(top: dict, expect: tuple = ()) -> float | None:
+    """``python -m repro_torch.serve --shutdown``: the server drains and
+    tells every host to shut down; the request, the server and the hosts
+    in ``expect`` must exit 0.  Any process still up afterwards is killed.
+    Returns the seconds from the request to the last exit, or None when
+    the server was already gone."""
+    procs = [top["server"]] + [h["proc"] for h in top["hosts"].values()]
+    if top["server"].poll() is not None or "address" not in top:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        return None
+    t0 = time.perf_counter()
+    rcs = {}
+    try:
+        ask = subprocess.run([sys.executable, "-m", "repro_torch.serve", "--shutdown",
+                              "--address", top["address"]], cwd=ROOT, env=serve_env(),
+                             capture_output=True, text=True, timeout=120)
+        rcs["--shutdown"] = ask.returncode
+        rcs["server"] = top["server"].wait(timeout=120)
+        for name in expect:
+            rcs[name] = top["hosts"][name]["proc"].wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    wanted = ("--shutdown", "server", *expect)
+    check(all(rcs.get(k) == 0 for k in wanted),
+          f"multihost {top['label']}: exits {rcs}, want 0 for {wanted}")
+    return time.perf_counter() - t0
+
+
+def phase_multihost(graphs: dict, smi: str) -> dict:
+    """Multi-host serving on the card: a server started with
+    ``--worker-listen`` (it runs nothing) and two worker hosts (``python
+    -m repro_torch.serve worker --connect ... --seats 1``), each seat its
+    own CUDA context, none of the three given ``--device``.  (a) the 8
+    tiny scenarios, trace hashes equal to the goldens, both hosts serving,
+    then all cached; (b) tab4 on lj against the sweep goldens, B1 launched
+    by the hosts (``/stats``); (c) tab4 with both engines, B2 and B3
+    launched by the hosts; ``--shutdown``: everything exits 0.  Then a
+    second server and two hosts on a fresh cache: (d) tab4 with h0
+    SIGKILLed once it holds a chunk, the golden rows, a host lost; (e)
+    ``--shutdown``: the server and h1 exit 0.  The server's and the
+    agents' own processes open no CUDA context."""
+    import os
+    import signal
+    import threading
+
+    from repro_torch.serve import ServeClient
+    from repro_torch.sweep import SweepSpec
+
+    axes, want, _ = tab4_golden(graphs)
+    tab4 = SweepSpec(name="tab4", **axes)
+    tiny = SweepSpec(name="tiny", accelerators=SEARCH_ACCELS, graphs=(graph_spec("tiny"),),
+                     problems=("bfs",), drams=("default", "hbm"))
+    golden = json.loads(TINY_GOLDEN.read_text())
+    jobs: dict = {}
+    apps_before = compute_apps()
+    cache = ROOT / "build" / "multihost_cache"
+    top = start_multihost("clean", cache)
+    try:
+        client = top["client"]
+        apps = compute_apps()
+        if apps_before:  # one context a seat: the server and the agents open none
+            check(len(apps) == len(apps_before) + len(MULTIHOST_HOSTS),
+                  f"multihost: compute apps {apps_before} -> {apps}")
+        base = client.stats()
+        check(base["device"] == "cuda", f"multihost: the server's device {base['device']}")
+
+        # (a) the tiny goldens from both hosts, then all cached
+        res_a, jobs["a"], _ = served_job(client, tiny, "multihost a", cache)
+        ids = [sc.scenario_id for sc in tiny.scenarios()]
+        hashes = {ids[e["index"]]: e["trace_hash"] for e in res_a.row_events}
+        check(hashes == {i: golden[i] for i in ids},
+              f"multihost a: trace hashes differ from the goldens: {hashes}")
+        after_a1 = client.stats()
+        done = {n: h["chunks_done"] for n, h in after_a1["workers"]["hosts"].items()}
+        check(all(done.get(n, 0) >= 1 for n in MULTIHOST_HOSTS),
+              f"multihost a: chunks by host {done}")
+        jobs["a"].update(stats_delta(base, after_a1), chunks_by_host=done)
+        res_a2, jobs["a_cached"], _ = served_job(client, tiny, "multihost a cached", cache)
+        after_a = client.stats()
+        jobs["a_cached"].update(stats_delta(after_a1, after_a))
+        check(res_a2.statuses == ["cached"] * len(ids)
+              and [e["trace_hash"] for e in res_a2.row_events]
+              == [e["trace_hash"] for e in res_a.row_events]
+              and not any(jobs["a_cached"]["launches"].values()),
+              "multihost a: the resubmission is not all cached with the same hashes "
+              f"and no launch ({jobs['a_cached']['launches']})")
+
+        # (b) tab4 on lj: the sweep goldens, B1 in the hosts
+        res_b, jobs["b"], _ = served_job(client, tab4, "multihost b", cache)
+        check(res_b.rows == want, "multihost b: rows differ from the goldens: "
+              + next((f"{x} != {y}" for x, y in zip(res_b.rows, want) if x != y), ""))
+        after_b = client.stats()
+        jobs["b"].update(stats_delta(after_a, after_b), chunks_by_host={
+            n: h["chunks_done"] for n, h in after_b["workers"]["hosts"].items()})
+        check(jobs["b"]["launches"]["dram_timing"] > 0, "multihost b: no B1 in the hosts")
+
+        # (c) both engines: the numpy rows cached, the device rows run B2 and B3
+        both = SweepSpec(name="tab4", engines=("numpy", "device"), **axes)
+        res_c, jobs["c"], _ = served_job(client, both, "multihost c", cache)
+        check(res_c.rows[0::2] == want, "multihost c: numpy rows differ from the goldens")
+        check([{**r, "engine": "numpy"} for r in res_c.rows[1::2]] == want,
+              "multihost c: device rows differ from the goldens but for engine")
+        after_c = client.stats()
+        jobs["c"].update(stats_delta(after_b, after_c))
+        for name in ("dram_timing", "edge_update", "spmv"):
+            check(jobs["c"]["launches"][name] > 0, f"multihost c: no {name} in the hosts")
+        clean_stats = after_c
+    finally:
+        drain_s = stop_multihost(top, expect=MULTIHOST_HOSTS)
+
+    # (d) a fresh server and hosts; h0 SIGKILLed once it holds a chunk
+    kcache = ROOT / "build" / "multihost_cache_kill"
+    ktop = start_multihost("kill", kcache)
+    victim = MULTIHOST_HOSTS[0]
+    killed: dict = {}
+    try:
+        kclient = ktop["client"]
+
+        def assassin():
+            watcher = ServeClient(ktop["address"])
+            deadline = time.perf_counter() + 300
+            while time.perf_counter() < deadline:
+                h = watcher.stats()["workers"]["hosts"].get(victim)
+                if h and h.get("busy", 0) >= 1:
+                    os.kill(ktop["hosts"][victim]["proc"].pid, signal.SIGKILL)
+                    killed["at"] = time.perf_counter()
+                    return
+                time.sleep(0.02)
+
+        t = threading.Thread(target=assassin, daemon=True)
+        t0 = time.perf_counter()
+        t.start()
+        res_d, jobs["d"], _ = served_job(kclient, tab4, "multihost d", kcache)
+        t.join(timeout=5)
+        check("at" in killed, f"multihost d: {victim} never held a chunk")
+        check(res_d.rows == want, "multihost d: rows differ from the goldens")
+        kstats = kclient.stats()
+        jobs["d"].update(faults=kstats["faults"], launches=kstats["launches"],
+                         killed_s_from_submit=killed["at"] - t0,
+                         chunks_by_host={n: h["chunks_done"]
+                                         for n, h in kstats["workers"]["hosts"].items()})
+        check(kstats["faults"]["workers_lost"] >= 1, f"multihost d: faults {kstats['faults']}")
+        check(kstats["launches"]["dram_timing"] > 0, "multihost d: no B1 in the hosts")
+    finally:
+        kdrain_s = stop_multihost(ktop, expect=MULTIHOST_HOSTS[1:])
+    # every context goes with its process, the killed host's orphaned seat
+    # too (its next heartbeat finds the pipe closed)
+    deadline = time.perf_counter() + 30
+    while len(apps_after := compute_apps()) > len(apps_before) \
+            and time.perf_counter() < deadline:
+        time.sleep(0.5)
+    check(len(apps_after) == len(apps_before),
+          f"multihost: compute apps {apps_before} after the phase: {apps_after}")
+
+    def starts(t: dict) -> dict:
+        return dict(port_files_s=t["port_files_s"], hosts={
+            n: {k: h[k] for k in ("registered_s_from_spawn", "ready_s_from_spawn",
+                                  "context_s", "kernels_s", "built")}
+            for n, h in t["hosts"].items()})
+
+    launches = {k: clean_stats["launches"][k] + kstats["launches"][k] for k in KERNELS}
+    info = dict(card=smi, hosts=list(MULTIHOST_HOSTS), seats_per_host=1,
+                spec=f"tab4 on {axes['graphs'][0]}", starts=starts(top),
+                kill_starts=starts(ktop), jobs=jobs, compute_apps_before=apps_before,
+                compute_apps=apps, compute_apps_after=apps_after, drain_s=drain_s,
+                kill_drain_s=kdrain_s, multihost_launches=launches)
+    emit(dict(phase="multihost", **info))
     return info
 
 
@@ -2175,14 +2459,17 @@ def main() -> None:
     # 8. the sweep server: warm spawn workers on the card, five jobs
     sweep_server = phase_sweep_server(graphs, smi, search)
 
-    # 9. the LM serving path in f32 against the reference's goldens
+    # 9. multi-host serving: two worker hosts on the card
+    multihost = phase_multihost(graphs, smi)
+
+    # 10. the LM serving path in f32 against the reference's goldens
     serve_golden = phase_serve_golden(dev)
 
-    # 10. the LM serving path at full size
+    # 11. the LM serving path at full size
     serve = phase_serve(dev, smi)
     worst["attention"] = max(worst["attention"], serve["real_qkv_err"])
 
-    # 11. kernel timing at each path's largest call
+    # 12. kernel timing at each path's largest call
     timing = {"dram_timing": phase_kernel_timing(dev, info["batch"]),
               "edge_update": phase_edge_update_timing(
                   device_info["largest"]["edge_update"][1], device_info["foregraph_call"]),
@@ -2199,7 +2486,8 @@ def main() -> None:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, scenarios=rows, device_pairs=device_rows, sweep=sweep,
-             search=search, sweep_server=sweep_server, serve_golden=serve_golden, serve=serve, kernel_timing=timing,
+             search=search, sweep_server=sweep_server, multihost=multihost,
+             serve_golden=serve_golden, serve=serve, kernel_timing=timing,
              attention_sass=sass),
         indent=1) + "\n")
 
@@ -2216,6 +2504,7 @@ def main() -> None:
         library_ms=timing[name].get("library_ms"), shape=timing[name]["shape"],
         sweep_launches=sweep["launches"][name],
         served_launches=sweep_server["served_launches"][name],
+        multihost_launches=multihost["multihost_launches"][name],
         **{key: timing[name][key] for key in EXTRA_KEYS if key in timing[name]},
         card=smi) for name in KERNELS]))
     print(smi, flush=True)

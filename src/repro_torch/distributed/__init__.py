@@ -1,25 +1,33 @@
 """Distribution in the port: the supervised spawn-context worker pool the
 sweep server shards scenario chunks across
-(:mod:`repro_torch.distributed.workpool`), and the deterministic
-fault-injection harness that exercises its recovery paths and that the
+(:mod:`repro_torch.distributed.workpool`), its multi-host counterpart —
+a :class:`RemoteWorkerPool` the server dispatches to over the wire and the
+:class:`WorkerHostAgent` each worker host runs on its own card
+(:mod:`repro_torch.distributed.remote`) — and the deterministic
+fault-injection harness that exercises their recovery paths and that the
 sweep runner consults when an
 :class:`~repro_torch.sweep.runner.ExecutionPolicy` carries a fault plan
 (:mod:`repro_torch.distributed.faults`).
 
-The reference's multi-host pool (``remote``) and its sharding rules are
-not ported yet, so their names are not listed here.  Exports resolve
-lazily, as the reference's do: spawn-context worker children import this
-package on their way to ``workpool`` and should pay for nothing else.
+The reference's sharding rules are not ported yet, so their names are not
+listed here.  Exports resolve lazily, as the reference's do: spawn-context
+worker children import this package on their way to ``workpool`` and
+should pay for nothing else.
 """
 from __future__ import annotations
 
-__all__ = ["FaultPlan", "FaultRule", "WorkerLost", "WorkerPool"]
+__all__ = ["FaultPlan", "FaultRule", "RemoteWorkerPool", "WorkerHostAgent",
+           "WorkerLost", "WorkerPool", "parse_address", "run_worker_host"]
 
 _LAZY = {
     "WorkerPool": ("repro_torch.distributed.workpool", "WorkerPool"),
     "WorkerLost": ("repro_torch.distributed.workpool", "WorkerLost"),
     "FaultPlan": ("repro_torch.distributed.faults", "FaultPlan"),
     "FaultRule": ("repro_torch.distributed.faults", "FaultRule"),
+    "RemoteWorkerPool": ("repro_torch.distributed.remote", "RemoteWorkerPool"),
+    "WorkerHostAgent": ("repro_torch.distributed.remote", "WorkerHostAgent"),
+    "parse_address": ("repro_torch.distributed.remote", "parse_address"),
+    "run_worker_host": ("repro_torch.distributed.remote", "run_worker_host"),
 }
 
 

@@ -34,8 +34,8 @@ a **kind**:
 
 The ``"worker.chunk"`` site is consulted by the sweep server's scheduler
 at every chunk dispatch (:mod:`repro_torch.serve.scheduler`); the
-``"remote"`` site belongs to the reference's multi-host pool, which the
-port does not carry yet.  The schedule format, and what each kind means,
+``"remote"`` site by the multi-host pool at every chunk assignment
+(:mod:`repro_torch.distributed.remote`).  The schedule format, and what each kind means,
 are the same as the reference's (``repro/distributed/faults.py``), so one
 plan drives both packages.
 

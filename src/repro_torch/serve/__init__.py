@@ -1,5 +1,5 @@
 """Simulation-as-a-service on the port: a persistent sweep server over the
-runner, on one device.
+runner, on one device or on the cards of many worker hosts.
 
 ``python -m repro_torch.serve`` starts a local HTTP server that keeps the
 expensive state of ``repro_torch.sweep`` warm between requests — a
@@ -36,9 +36,13 @@ are journaled so a restarted server resumes unfinished work.  The
 server's device is named once (``device=None``: the CUDA card, raising
 without one) and handed to the workers as a string.
 
-The reference's multi-host serving (``repro.distributed.remote``) is not
-ported yet.  The LM serving scaffolding (batched KV-cache ``ServeEngine``
-over :mod:`repro_torch.models`) lives in :mod:`repro_torch.serve.legacy`.
+Multi-host serving (``--worker-listen`` and ``python -m repro_torch.serve
+worker``) swaps the local pool for a
+:class:`~repro_torch.distributed.remote.RemoteWorkerPool`: worker hosts
+connect out to it, each runs a warm spawn pool on its own card, and
+the rows are the single-host path's.  The LM serving scaffolding (batched
+KV-cache ``ServeEngine`` over :mod:`repro_torch.models`) lives in
+:mod:`repro_torch.serve.legacy`.
 """
 from repro_torch.serve.client import (
     JobResult,

@@ -31,9 +31,28 @@ exits 2), ``cpu`` for the kernels' plain versions.  The server's own
 process opens no CUDA context; each spawn worker opens its own and loads
 the kernels before it takes a chunk.
 
-Multi-host serving (the reference's ``--worker-listen`` and its
-``worker`` subcommand) is not ported yet: both print ``error: ...`` and
-exit 2.
+Multi-host serving: ``--worker-listen HOST:PORT`` makes the server run a
+:class:`~repro_torch.distributed.remote.RemoteWorkerPool` instead of a
+local spawn pool — it executes nothing until worker hosts connect.  On
+each host, start an agent that registers its seats and runs chunks on a
+warm local pool on that host's card:
+
+    PYTHONPATH=src python -m repro_torch.serve --port 8731 \
+        --cache results/sweep_cache --worker-listen 0.0.0.0:8732
+
+    # on every worker host
+    PYTHONPATH=src python -m repro_torch.serve worker \
+        --connect scheduler-host:8732 --seats 4
+
+Hosts re-register with backoff after a scheduler restart or network
+blip; a host that dies mid-chunk surfaces as a ``WorkerLost`` and its
+chunks re-dispatch to the surviving hosts.  ``--worker-listen`` with
+port 0 picks a free port; ``--worker-port-file`` writes the bound
+address for the spawning harness.  Under ``--worker-listen`` the
+server's ``--device`` names its own host's device (``/stats["device"]``),
+where no chunk runs; each ``worker`` takes its own ``--device`` (default:
+its card; without one it prints ``error: ...`` and exits 2), and
+``/stats["launches"]`` sums the kernel launches of every host.
 """
 from __future__ import annotations
 
@@ -72,14 +91,7 @@ def _load_faults(arg: str):
     return plan_from_json(text)
 
 
-MULTIHOST_NOT_PORTED = ("error: multi-host serving is not ported yet "
-                        "(ROADMAP A9, distributed/remote)")
-
-
 def _serve(args: argparse.Namespace) -> int:
-    if args.worker_listen:
-        print(MULTIHOST_NOT_PORTED, file=sys.stderr)
-        return 2
     try:
         policy = build_policy(args)
         fault_plan = _load_faults(args.faults)
@@ -87,12 +99,28 @@ def _serve(args: argparse.Namespace) -> int:
     except (OSError, ValueError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    pool_factory = None
+    if args.worker_listen:
+        from repro_torch.distributed.remote import RemoteWorkerPool, parse_address
+
+        try:
+            whost, wport = parse_address(args.worker_listen)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+
+        def pool_factory(whost=whost, wport=wport):
+            return RemoteWorkerPool(
+                host=whost, port=wport, fault_plan=fault_plan,
+                task_deadline_s=args.worker_deadline or None)
+
     server = SweepServer(
         host=args.host, port=args.port,
         cache_dir=args.cache or None,
         workers=args.workers, mode=args.mode, policy=policy,
         chunk_size=args.chunk_size, trace_hashes=args.trace_hashes,
         quiet=args.quiet,
+        pool_factory=pool_factory,
         poison_threshold=args.poison_threshold,
         fault_plan=fault_plan,
         worker_deadline_s=args.worker_deadline or None,
@@ -104,11 +132,59 @@ def _serve(args: argparse.Namespace) -> int:
     if args.port_file:
         with open(args.port_file, "w") as f:
             f.write(server.address + "\n")
+    pool = f"workers={args.workers}"
+    if args.worker_listen:
+        pool_addr = server.scheduler.pool.address
+        if args.worker_port_file:
+            with open(args.worker_port_file, "w") as f:
+                f.write(pool_addr + "\n")
+        pool = f"worker hosts connect to {pool_addr}"
     print(f"serving on http://{server.address} "
-          f"(cache={args.cache or '<none>'}, workers={args.workers}, "
-          f"device={device})", flush=True)
+          f"(cache={args.cache or '<none>'}, {pool}, device={device})", flush=True)
     server.wait()
     return 0
+
+
+def worker_main(argv: list[str] | None = None) -> int:
+    """``python -m repro_torch.serve worker``: one worker-host agent."""
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.serve worker",
+        description="Worker-host agent: connects out to a scheduler's "
+                    "--worker-listen port, registers its seats, executes "
+                    "dispatched chunks on a warm local worker pool on this "
+                    "host's device, and re-registers with backoff after "
+                    "disconnects.")
+    ap.add_argument("--connect", required=True,
+                    help="scheduler worker-listen address (host:port)")
+    ap.add_argument("--seats", type=int, default=2,
+                    help="local spawn-worker pool size to offer")
+    ap.add_argument("--name", default="",
+                    help="host label in scheduler stats "
+                         "(default: hostname:pid)")
+    ap.add_argument("--worker-deadline", type=float, default=300.0,
+                    help="per-chunk liveness deadline of the local pool "
+                         "(0 disables)")
+    ap.add_argument("--device", default=None,
+                    help="device this host's workers run on (default: the "
+                         "CUDA card; cpu: the kernels' plain versions)")
+    ap.add_argument("--quiet", action="store_true",
+                    help="suppress structured logs on stderr")
+    args = ap.parse_args(argv)
+
+    from repro_torch.distributed.remote import parse_address, run_worker_host
+    from repro_torch.serve.server import jlog
+
+    try:
+        parse_address(args.connect)
+        device = str(resolve_device(args.device))
+    except (ValueError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    outcome = run_worker_host(args.connect, seats=max(1, args.seats),
+                              name=args.name or None,
+                              worker_deadline_s=args.worker_deadline or None,
+                              log=None if args.quiet else jlog, device=device)
+    return 0 if outcome == "shutdown" else 1
 
 
 def _submit(args: argparse.Namespace) -> int:
@@ -182,8 +258,7 @@ def main(argv: list[str] | None = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "worker":
-        print(MULTIHOST_NOT_PORTED, file=sys.stderr)
-        return 2
+        return worker_main(argv[1:])
     ap = argparse.ArgumentParser(prog="python -m repro_torch.serve",
                                  description=__doc__)
     mode = ap.add_mutually_exclusive_group()
@@ -232,9 +307,16 @@ def main(argv: list[str] | None = None) -> int:
                          "previous server run")
     ap.add_argument("--device", default=None,
                     help="device the workers run on (default: the CUDA "
-                         "card; cpu: the kernels' plain versions)")
+                         "card; cpu: the kernels' plain versions); under "
+                         "--worker-listen, this host's, where no chunk runs")
+    # multi-host knobs
     ap.add_argument("--worker-listen", default="",
-                    help="multi-host serving: not ported yet (exits 2)")
+                    help="host:port to accept worker hosts on; replaces the "
+                         "local pool with a RemoteWorkerPool (port 0 picks "
+                         "a free port, see --worker-port-file)")
+    ap.add_argument("--worker-port-file", default="",
+                    help="write the bound worker-listen host:port here once "
+                         "listening")
     add_policy_args(ap)
     # client knobs
     ap.add_argument("--out", default="results/served",

@@ -27,8 +27,8 @@ two-element lists, address mappings serialize to their ``label`` token
 ``spec_from_wire(spec_to_wire(s))`` expands to hash-identical scenarios —
 the server caches under the same content addresses as the CLI.
 
-The same framing carries the **worker-host protocol** of the reference's
-multi-host pool (``repro.distributed.remote``, not ported yet): a
+The same framing carries the **worker-host protocol** of the multi-host
+pool (:mod:`repro_torch.distributed.remote`): a
 ``chunk`` event is ``chunk_to_wire`` — fully resolved
 :class:`~repro_torch.sweep.spec.Scenario` dicts (``scenario_to_wire``),
 the execution mode, the :class:`~repro_torch.sweep.runner.ExecutionPolicy`

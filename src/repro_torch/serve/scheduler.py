@@ -611,7 +611,7 @@ class SweepScheduler:
     @property
     def _max_inflight(self) -> int:
         """In-flight chunk window: 2x the pool's *current* capacity.  Read
-        per dispatch round, never cached — the reference's remote pool
+        per dispatch round, never cached — the remote pool
         starts at zero seats and grows as worker hosts register, so the
         window must track it live.  The floor keeps a couple of chunks
         staged inside an empty pool."""

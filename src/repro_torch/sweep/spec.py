@@ -14,8 +14,8 @@ nesting order), and ``point_at(i)`` decodes any single point into its
 :class:`Scenario` — or the :class:`Skipped` record explaining why the
 combination is invalid — without touching any other point.  ``expand()``
 is a plain traversal of ``iter_points()``, so grid sweeps keep their
-historical, byte-identical ordering while an adaptive search (not ported
-yet) can draw candidate pools of 10^4-10^5 combinations without
+historical, byte-identical ordering while an adaptive search
+(:mod:`repro_torch.sweep.search`) can draw candidate pools of 10^4-10^5 combinations without
 materializing the full list.
 
 Scenarios are frozen, hashable and picklable: they are the unit of work of

@@ -109,17 +109,20 @@ def test_corrupt_records_and_delay_match_reference():
 
 
 def test_package_exports_only_what_resolves():
-    from repro_torch.distributed import workpool
+    from repro_torch.distributed import remote, workpool
 
-    assert sorted(distributed.__all__) == ["FaultPlan", "FaultRule", "WorkerLost",
-                                           "WorkerPool"]
+    assert sorted(distributed.__all__) == ["FaultPlan", "FaultRule", "RemoteWorkerPool",
+                                           "WorkerHostAgent", "WorkerLost", "WorkerPool",
+                                           "parse_address", "run_worker_host"]
     assert distributed.FaultPlan is faults.FaultPlan
     assert distributed.FaultRule is faults.FaultRule
     assert distributed.WorkerPool is workpool.WorkerPool
     assert distributed.WorkerLost is workpool.WorkerLost
-    for name in ("RemoteWorkerPool", "WorkerHostAgent", "param_specs"):
+    for name in ("RemoteWorkerPool", "WorkerHostAgent", "parse_address", "run_worker_host"):
+        assert getattr(distributed, name) is getattr(remote, name)
+    for name in ("param_specs", "shardings"):
         with pytest.raises(AttributeError):
-            getattr(distributed, name)  # remote and sharding: not ported yet
+            getattr(distributed, name)  # sharding: not ported yet
 
 
 # ---- policied execution through a fault plan ---------------------------------

@@ -195,6 +195,7 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     files = sorted(port.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
                                           ROOT / "benchmarks" / "run_torch.py",
                                           ROOT / "benchmarks" / "paper_data.py"]
+    files += sorted((ROOT / "benchmarks").glob("bench_*_torch.py"))
     assert len(files) > 20
     # every CUDA source's Python wrapper and ops, and the device engine
     must_cover = [port / "core" / "semexec.py", port / "core" / "trace.py",
@@ -216,6 +217,10 @@ def test_port_imports_nothing_of_jax_or_the_reference():
                    for m in ("__init__", "__main__", "spec", "cache", "runner", "results")]
     must_cover += [port / "distributed" / "__init__.py", port / "distributed" / "faults.py",
                    port / "kernels" / "dram_timing" / "ops.py"]
+    # multi-host serving and the port's twins of the serve benches
+    must_cover += [port / "distributed" / "remote.py",
+                   ROOT / "benchmarks" / "bench_multihost_torch.py",
+                   ROOT / "benchmarks" / "bench_faults_torch.py"]
     for f in must_cover:
         assert f in files, f"{f.relative_to(ROOT)} is missing"
     for f in files:

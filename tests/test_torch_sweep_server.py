@@ -2,7 +2,7 @@
 (``repro.serve``): wire round-trips (the ``device`` engine axis included),
 scheduler dedup, in-flight join, cancel and drain, an HTTP server that
 submits, streams and shuts down, the CLI (``--device``, the multi-host
-stubs), SIGTERM drain and resume of a ``python -m repro_torch.serve``
+refusals), SIGTERM drain and resume of a ``python -m repro_torch.serve``
 process, and served rows equal to the reference's ``run_sweep`` rows and
 to the tiny golden trace hashes.  Everything runs on the CPU
 (``device="cpu"``); ``tests/test_torch_serve.py`` holds the LM serving path.
@@ -488,16 +488,26 @@ def test_cli_search_client_writes_the_probes(tmp_path, capsys):
         server.close()
 
 
-@pytest.mark.parametrize("argv", [
-    ["--worker-listen", "127.0.0.1:0"],
-    ["--worker-listen", "0.0.0.0:8732", "--device", "cpu"],
-    ["worker", "--connect", "127.0.0.1:8732", "--seats", "2"],
-    ["worker"],
+@pytest.mark.parametrize("argv, says", [
+    (["--worker-listen", "127.0.0.1:0"], "no CUDA device"),
+    (["--worker-listen", "no-port", "--device", "cpu"], "bad address 'no-port'"),
+    (["worker", "--connect", "127.0.0.1:8732", "--seats", "2"], "no CUDA device"),
+    (["worker"], "required: --connect"),
 ])
-def test_multihost_serving_exits_2_and_names_the_slice(argv, capsys):
-    assert serve_cli.main(argv) == 2
+def test_multihost_serving_exits_2_and_names_the_slice(argv, says, capsys, monkeypatch):
+    """The multi-host surface's refusals: a server or worker host without
+    its card, a bad listen address and a host with nowhere to connect
+    print ``error: ...`` and exit 2, starting nothing."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    try:
+        rc = serve_cli.main(argv)
+    except SystemExit as e:  # argparse's own usage error
+        rc = e.code
+    assert rc == 2
     err = capsys.readouterr().err
-    assert err.startswith("error: ") and "ROADMAP A9, distributed/remote" in err
+    assert "error: " in err and says in err
+    if argv[0] != "worker":
+        assert err.startswith("error: ")
 
 
 def test_server_without_its_device_exits_2(tmp_path, capsys, monkeypatch):
