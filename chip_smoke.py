@@ -152,10 +152,50 @@ Phases, one JSON line each on stdout:
               its plain version on the real q/k/v of layer 0 of wave 1.
               Printed: wall per wave, prefill and decode tokens per second,
               and the share of prefill time inside the attention kernel.
-12. kernels -- one line per ported kernel: launches on its path (and in
+12. train_golden -- the LM training path in f32 on the card (TF32 off)
+              against ``tests/data/torch_golden_train.json`` (written from
+              the JAX reference): ``qwen3_0_6b.reduced()`` and qwen3 at full
+              width cut to 2 layers, 3 ``make_train_step`` steps each on
+              seeded ``SyntheticLM`` batches; losses and grad norms at rtol
+              1e-4, the weights' leaf sums, norms and change norms at the
+              file's tolerances.
+13. train  -- the LM training path at full size: ``qwen3_0_6b`` at its
+              published widths and depth in bf16, weights from ``Model.init``
+              with a seeded generator on the card, 30 steps of 8 x 1,024
+              ``SyntheticLM`` tokens (ids below 8,192: over the whole vocab
+              30 steps learn nothing) through ``run_supervised`` (remat, sync
+              checkpoint at the end under ``build/train_ckpt``, timed and
+              deleted).  Checks: ``attention_fwd`` on CUDA tensors that
+              require grad raises; every parameter's gradient is finite after
+              the first backward; every loss is finite and the mean of the
+              last 5 is below the first 5's; the attention kernel launches
+              0 times in the train steps; the checkpoint restores into the
+              live model; the trained weights then serve through
+              ``Model.forward`` with exactly ``n_layers`` kernel launches and
+              logits within 2e-2 of the loss path's ``_sdpa`` logits.
+              Printed: the median step's seconds and tokens/s, a host-clock
+              split into forward + backward and optimizer, peak memory, the
+              step's FLOPs from shapes and their share of 989 TFLOP/s, the
+              card's idle share and its ms by kind of kernel and heaviest
+              kernels over 3 steady steps (``torch.profiler``),
+              the checkpoint's bytes, save and restore seconds.
+14. train_ft -- the fault path at full width cut to 2 layers (4 x 256
+              tokens, 12 steps, sync checkpoints every 4 steps, ~1.9 GB
+              each, under ``build/``): failures injected at steps 5 and 9
+              must end with parameters and moments bit-equal to a clean run.
+              ``torch.use_deterministic_algorithms`` is on for this phase
+              only (the embedding's scatter-add backward is otherwise
+              atomic); ``CUBLAS_WORKSPACE_CONFIG`` is set before torch
+              loads, as cuBLAS reads it once.  Then ``python -m
+              repro_torch.launch.train --layers 2 --steps 4`` as a child, no
+              ``--device`` (the card), must exit 0 (log in
+              ``chiprun_out/train_launch.log``).
+15. kernels -- one line per ported kernel: launches on its path (and in
               the sweep's engines run, ``sweep_launches``, in the sweep
-              server's workers, ``served_launches``, and in the multi-host
-              phase's hosts, ``multihost_launches``), its time at
+              server's workers, ``served_launches``, in the multi-host
+              phase's hosts, ``multihost_launches``, and for attention in
+              phase train's steps, ``train_launches`` (0), and its serving
+              of the trained weights, ``train_serve_launches``), its time at
               the path's largest call (CUDA events), its bound, the plain
               version's time and, where one PyTorch call computes the same
               function, that call's time.  ``ms`` is the mean of calls
@@ -251,6 +291,21 @@ SERVER_START_S = 120.0  # spawn to port file
 # phase multihost: worker hosts of one seat each, all on the one card
 MULTIHOST_HOSTS = ("h0", "h1")
 HOST_STAT_RTOL = 1e-12
+# LM training: full-width qwen3_0_6b in bf16 on seeded SyntheticLM batches
+TRAIN_GOLDEN = ROOT / "tests" / "data" / "torch_golden_train.json"
+TRAIN_ARCH = "qwen3_0_6b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 30
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 5
+# SyntheticLM draws phase train's tokens from the first TRAIN_DATA_VOCAB ids
+# of the model's 151,936: over the whole vocab each id is a label ~0.05
+# times a step, so 30 steps learn nothing (the loss held at 11.98)
+TRAIN_DATA_VOCAB = 8192
+TRAIN_SPLIT_STEPS, TRAIN_PROFILE_STEPS = 3, 3  # steady steps split / profiled
+TRAIN_SERVE_ROWS = 2  # rows of a batch the trained weights serve
+# phase train_ft: full width cut to 2 layers (a checkpoint is ~1.9 GB)
+FT_LAYERS, FT_BATCH, FT_SEQ, FT_STEPS, FT_EVERY = 2, 4, 256, 12, 4
+FT_FAILURES = (5, 9)
+LAUNCH_STEPS = 4
 
 
 def emit(obj: dict) -> None:
@@ -2319,6 +2374,420 @@ def phase_serve(dev, card: str) -> dict:
     return info
 
 
+# ---------------------------------------------------------------------------
+# LM training
+# ---------------------------------------------------------------------------
+
+
+def leaf_stats(tree: dict, init: dict) -> dict:
+    """path -> sum, sum of |w|, norm and norm of the change from ``init``,
+    in f64, over every leaf of a reference-layout numpy tree (as
+    ``tests/test_torch_train.py`` writes them into the train goldens)."""
+    import numpy as np
+
+    from repro_torch.interop import tree_leaves
+
+    out, init = {}, dict(tree_leaves(init))
+    for key, w in tree_leaves(tree):
+        w, w0 = np.asarray(w, np.float64), np.asarray(init[key], np.float64)
+        out[key] = dict(sum=float(w.sum()), abs_sum=float(np.abs(w).sum()),
+                        norm=float(np.linalg.norm(w)), delta_norm=float(np.linalg.norm(w - w0)))
+    return out
+
+
+def phase_train_golden(dev) -> dict:
+    """The training path in f32 on the card against the reference's goldens
+    (``tests/data/torch_golden_train.json``): 3 train steps of each config,
+    losses and grad norms at the file's rtol, the weights' leaf sums, norms
+    and change norms at its tolerances."""
+    import torch
+
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.interop import lm_params_numpy, lm_params_to_numpy, load_lm_params
+    from repro_torch.models import Model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    golden = json.loads(TRAIN_GOLDEN.read_text())
+    tol = golden["tolerance"]
+    t0 = time.perf_counter()
+    out = {}
+    for g in golden["configs"]:
+        cfg = ArchConfig(**g["config"])
+        init = lm_params_numpy(cfg, g["weight_seed"])
+        model = load_lm_params(Model(cfg), init)
+        tcfg = TrainConfig(optimizer=opt.OptimizerConfig(**golden["optimizer"]))
+        state = opt.init(tcfg.optimizer, dict(model.named_parameters()))
+        step = make_train_step(model, tcfg)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, global_batch=golden["batch"],
+                                      seq_len=golden["seq"], seed=g["data_seed"]))
+        worst = dict.fromkeys(("loss", "grad_norm", "lr"), 0.0)
+        for i, want in enumerate(g["steps"]):
+            state, got = step(state, data.batch(i))
+            for key in worst:
+                worst[key] = max(worst[key], abs(float(got[key]) - want[key]) / abs(want[key]))
+        check(worst["loss"] <= tol["loss_rtol"] and worst["grad_norm"] <= tol["grad_norm_rtol"]
+              and worst["lr"] <= 1e-6, f"train golden {g['name']}: relative errors {worst}")
+        stats = leaf_stats(lm_params_to_numpy(model), init)
+        for key, want in g["leaves"].items():
+            got = stats[key]
+            check(abs(got["norm"] - want["norm"]) <= tol["norm_rtol"] * want["norm"]
+                  and abs(got["sum"] - want["sum"]) <= tol["sum_abs_frac"] * want["abs_sum"]
+                  and abs(got["delta_norm"] - want["delta_norm"])
+                  <= tol["delta_norm_rtol"] * want["delta_norm"],
+                  f"train golden {g['name']}: leaf {key} {got} != {want}")
+        out[g["name"]] = dict(worst_rel_err=worst, leaves=len(stats))
+        del model, state
+    torch.cuda.empty_cache()
+    emit(dict(phase="train_golden", configs=out, tolerance=tol, dtype="float32",
+              seconds=round(time.perf_counter() - t0, 3)))
+    return out
+
+
+def device_profile(fn, reps: int) -> dict:
+    """The card over ``reps`` calls of ``fn()`` (after one warm-up), by
+    ``torch.profiler``: its idle share (one less the union of the device
+    activities' intervals over the window from the first event to the last),
+    its ms a call by kind of kernel (matmuls, softmax, the rest) and its
+    heaviest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    if not spans:
+        return dict(idle_share=None, note="not measured: the trace holds no device activity")
+    window = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events))
+    busy, cur_start, cur_end = 0.0, *spans[0]
+    for start, end in spans[1:]:
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    ms = {}  # the kernels' own rows (the ops that launch them carry their time too)
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            ms[evt.key[:90]] = ms.get(evt.key[:90], 0.0) + us / reps / 1e3
+    kinds = dict.fromkeys(("matmul", "softmax", "other"), 0.0)
+    for name, t in ms.items():
+        low = name.lower()
+        kind = ("matmul" if any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet"))
+                else "softmax" if "softmax" in low else "other")
+        kinds[kind] += t
+    top = sorted(ms.items(), key=lambda kv: -kv[1])[:10]
+    return dict(idle_share=1.0 - busy / window, busy_ms=busy / 1e3 / reps,
+                window_ms=window / 1e3 / reps, device_events=len(spans) // reps, reps=reps,
+                device_ms_by_kind=kinds, top_kernels_ms=dict(top))
+
+
+def train_flops(cfg, batch: int, seq: int) -> dict:
+    """Operations of one train step from shapes: 6 x the matmul parameters
+    (the layers' and the unembedding's) x tokens, plus causal attention's
+    QKᵀ and PV forward and backward (6·B·nq·hd·S² a layer); remat's
+    recompute is not counted."""
+    from repro_torch.models.model import padded_vocab
+
+    d, hd, nq, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    per_layer = d * nq * hd + 2 * d * nkv * hd + nq * hd * d + 3 * d * cfg.d_ff
+    matmul_params = cfg.n_layers * per_layer + d * padded_vocab(cfg.vocab)
+    dense = 6 * matmul_params * batch * seq
+    attn = 6 * batch * nq * hd * seq * seq * cfg.n_layers
+    return dict(matmul_params=matmul_params, dense_flops=dense, attention_flops=attn,
+                flops=dense + attn)
+
+
+def phase_train(dev, card: str) -> dict:
+    """Full-width, full-depth qwen3_0_6b in bf16 through ``run_supervised``
+    on seeded ``SyntheticLM`` batches; then the trained weights serve
+    through ``Model.forward`` (the attention kernel)."""
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import _platform
+    from repro_torch.kernels.attention import attention_fwd
+    from repro_torch.models import Model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.fault_tolerance import SupervisorConfig, run_supervised
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    cfg = get_arch(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    model = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    params = dict(model.named_parameters())
+    tcfg = TrainConfig(optimizer=opt.OptimizerConfig(
+        lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS))
+    state = opt.init(tcfg.optimizer, params)
+    source = SyntheticLM(DataConfig(vocab=TRAIN_DATA_VOCAB, global_batch=TRAIN_BATCH,
+                                    seq_len=TRAIN_SEQ, seed=2026))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    # the kernel refuses to be differentiated
+    q = torch.randn(1, 256, cfg.n_heads, cfg.head_dim, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    kv = torch.randn(1, 256, cfg.n_kv_heads, cfg.head_dim, device=dev, dtype=torch.bfloat16)
+    try:
+        attention_fwd(q, kv, kv)
+        fail("attention_fwd on CUDA tensors that require grad did not raise")
+    except RuntimeError as e:
+        check("no backward" in str(e), f"attention_fwd raised something else: {e}")
+    with torch.no_grad():
+        attention_fwd(q, kv, kv)  # and launches under no_grad
+    del q, kv
+
+    # every parameter has a finite gradient after the first backward
+    batch0 = {k: torch.as_tensor(v, device=dev) for k, v in source.batch(0).items()}
+    _platform.reset_launches()
+    loss0, _ = model.loss(batch0)
+    grads = torch.autograd.grad(loss0, list(params.values()))
+    bad = [n for n, g in zip(params, grads) if not bool(torch.isfinite(g).all())]
+    check(not bad, f"non-finite gradients after the first backward: {bad[:5]}")
+    check(_platform.launch_counts()["attention"] == 0,
+          "the attention kernel launched in a backward pass")
+    del grads, loss0
+
+    step_s: list = []
+    step = make_train_step(model, tcfg)
+
+    def timed_step(opt_state, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(opt_state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt = Checkpointer(str(ckpt_dir), keep=1)
+    torch.cuda.reset_peak_memory_stats()
+    _platform.reset_launches()
+    t0 = time.perf_counter()
+    _, state, history = run_supervised(
+        train_step=timed_step, params=model, opt_state=state, data_source=source,
+        n_steps=TRAIN_STEPS, ckpt=ckpt,
+        cfg=SupervisorConfig(checkpoint_every=TRAIN_STEPS, async_checkpoint=False),
+        log_every=0, log=lambda s: None)
+    wall = time.perf_counter() - t0
+    train_launches = _platform.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [loss for _, loss in history]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), f"losses {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f"the loss did not fall: first 5 {first}, last 5 {last}")
+    check(train_launches["attention"] == 0,
+          f"the attention kernel launched {train_launches['attention']} times in training")
+    save = dict(ckpt.last_save)
+    check(save.get("step") == TRAIN_STEPS, f"no checkpoint at step {TRAIN_STEPS}: {save}")
+    saved = {n: params[n].detach().clone() for n in ("final_norm.scale", "blocks.0.attn.wq")}
+    saved_step = int(state["step"])
+
+    # host-clock split of steady steps, then the card's idle share
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in source.batch(TRAIN_STEPS).items()}
+    fwd_bwd_s, opt_s = [], []
+    for _ in range(TRAIN_SPLIT_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, _ = model.loss(batch)
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        torch.cuda.synchronize()
+        fwd_bwd_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        opt.update(tcfg.optimizer, grads, state, params)
+        torch.cuda.synchronize()
+        opt_s.append(time.perf_counter() - t)
+        del grads, loss
+    idle = device_profile(lambda: step(state, batch), reps=TRAIN_PROFILE_STEPS)
+
+    # the checkpoint restores into the live model and state
+    t = time.perf_counter()
+    ckpt.restore((model, state))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    check(int(state["step"]) == saved_step
+          and all(torch.equal(params[n], w) for n, w in saved.items()),
+          "the restored checkpoint differs from the weights it saved")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # the trained weights serve through Model.forward: the kernel, once a layer
+    serve_batch = {"tokens": batch["tokens"][:TRAIN_SERVE_ROWS]}
+    _platform.reset_launches()
+    served = model.forward(serve_batch)
+    serve_launches = _platform.launch_counts()["attention"]
+    check(serve_launches == cfg.n_layers,
+          f"serving the trained weights launched the kernel {serve_launches} times, "
+          f"not {cfg.n_layers}")
+    with torch.no_grad():
+        trained = model.train_forward(serve_batch)
+    tol = ATTN_TOL["bfloat16"]
+    a, b = served[..., : cfg.vocab].float(), trained[..., : cfg.vocab].float()
+    serve_err = float((a - b).abs().max())
+    check(torch.allclose(a, b, rtol=tol, atol=tol),
+          f"served logits differ from the loss path's by {serve_err} (tolerance {tol})")
+    del served, trained, a, b
+
+    median_s = statistics.median(step_s)
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    info = dict(arch=cfg.arch, dtype=cfg.dtype, n_layers=cfg.n_layers,
+                params=sum(p.numel() for p in params.values()), batch=TRAIN_BATCH,
+                data_vocab=TRAIN_DATA_VOCAB,
+                seq=TRAIN_SEQ, tokens_per_step=tokens, steps=TRAIN_STEPS, remat=cfg.remat,
+                lr=TRAIN_LR, init_s=init_s, wall_s=wall, step_s=step_s,
+                median_step_s=median_s, tokens_per_s=tokens / median_s,
+                fwd_bwd_s=statistics.median(fwd_bwd_s), optimizer_s=statistics.median(opt_s),
+                loss_first=losses[0], loss_last=losses[-1], loss_first5=first,
+                loss_last5=last, losses=losses, peak_mem_gb=peak_gb, **flops,
+                flop_share_of_bf16_peak=flops["flops"] / median_s / PEAK_BF16_OPS_PER_S,
+                checkpoint_bytes=save["bytes"], checkpoint_snapshot_s=save["snapshot_s"],
+                checkpoint_write_s=save["write_s"], checkpoint_restore_s=restore_s,
+                train_launches=train_launches["attention"], serve_launches=serve_launches,
+                serve_vs_loss_path_max_abs_err=serve_err, **idle)
+    if idle.get("busy_ms") is not None:
+        # the profiler slows the host and so widens its window: the busy
+        # time against the unprofiled median step too
+        info["idle_share_of_median_step"] = 1.0 - idle["busy_ms"] / 1e3 / median_s
+    emit(dict(phase="train", card=card, **{k: round(v, 6) if isinstance(v, float) else v
+                                           for k, v in info.items()
+                                           if k not in ("losses", "step_s")}))
+    del model, state, params, batch, batch0, serve_batch
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_train_ft(dev, card: str) -> dict:
+    """The fault path at full width cut to 2 layers: failures injected at
+    steps 5 and 9 with sync checkpoints every 4 steps must end bit-equal to
+    a clean run (deterministic algorithms on, for this phase only); then the
+    launcher as a child process on the card."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import Model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.fault_tolerance import SupervisorConfig, run_supervised
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=FT_LAYERS)
+    tcfg = TrainConfig(optimizer=opt.OptimizerConfig(
+        lr=TRAIN_LR, warmup_steps=2, total_steps=FT_STEPS))
+    source = SyntheticLM(DataConfig(vocab=cfg.vocab, global_batch=FT_BATCH,
+                                    seq_len=FT_SEQ, seed=7))
+
+    def run(label: str, failures: set):
+        model = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+        state = opt.init(tcfg.optimizer, dict(model.named_parameters()))
+        directory = ROOT / "build" / f"train_ft_{label}"
+        shutil.rmtree(directory, ignore_errors=True)
+        ckpt = Checkpointer(str(directory), keep=2)
+        saves: list = []
+        save = ckpt.save
+
+        def counted_save(step, tree, meta=None):
+            save(step, tree, meta)
+            saves.append(dict(ckpt.last_save))
+
+        ckpt.save = counted_save
+
+        def fail_at(step):
+            if step in failures:
+                failures.discard(step)
+                return True
+            return False
+
+        log: list = []
+        t0 = time.perf_counter()
+        _, state, history = run_supervised(
+            train_step=make_train_step(model, tcfg), params=model, opt_state=state,
+            data_source=source, n_steps=FT_STEPS, ckpt=ckpt,
+            cfg=SupervisorConfig(checkpoint_every=FT_EVERY, async_checkpoint=False),
+            fail_at=fail_at, log_every=0, log=log.append)
+        wall = time.perf_counter() - t0
+        shutil.rmtree(directory, ignore_errors=True)
+        return model, state, history, dict(wall_s=wall, saves=saves, log=log)
+
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        failures = set(FT_FAILURES)
+        model, state, history, faulted = run("faults", failures)
+        check(not failures, f"failures {failures} were not injected")
+        steps = [s for s, _ in history]
+        check(steps[-1] == FT_STEPS and set(range(1, FT_STEPS + 1)) <= set(steps),
+              f"supervised steps {steps}")
+        clean_model, clean_state, _, clean = run("clean", set())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for (name, a), b in zip(model.named_parameters(), clean_model.parameters()):
+        check(torch.equal(a, b), f"train_ft: parameter {name} differs from the clean run")
+    check(int(state["step"]) == int(clean_state["step"]) == FT_STEPS,
+          f"train_ft: steps {int(state['step'])} and {int(clean_state['step'])}")
+    for moment in ("m", "v"):
+        for name, a in state[moment].items():
+            check(torch.equal(a, clean_state[moment][name]),
+                  f"train_ft: moment {moment} of {name} differs from the clean run")
+    restarts = sum(1 for line in faulted["log"] if "-> restart" in line)
+    check(restarts == len(FT_FAILURES), f"train_ft: {restarts} restarts: {faulted['log']}")
+    ckpt_bytes = faulted["saves"][0]["bytes"]
+    del model, state, clean_model, clean_state
+    torch.cuda.empty_cache()
+
+    # the launcher on the card, no --device
+    launch_dir = ROOT / "build" / "train_launch_ckpt"
+    shutil.rmtree(launch_dir, ignore_errors=True)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--layers", str(FT_LAYERS),
+         "--steps", str(LAUNCH_STEPS), "--ckpt-dir", str(launch_dir)],
+        cwd=ROOT, env=serve_env(), capture_output=True, text=True, timeout=600)
+    launch_s = time.perf_counter() - t
+    shutil.rmtree(launch_dir, ignore_errors=True)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "train_launch.log").write_text(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f"the launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
+    check(f"done: {LAUNCH_STEPS} steps" in proc.stdout and "device=cuda" in proc.stdout,
+          f"the launcher printed {proc.stdout[-1000:]}")
+    info = dict(arch=cfg.arch, n_layers=FT_LAYERS, batch=FT_BATCH, seq=FT_SEQ,
+                steps=FT_STEPS, checkpoint_every=FT_EVERY, failures=list(FT_FAILURES),
+                restarts=restarts, checkpoint_bytes=ckpt_bytes,
+                saves_faulted=len(faulted["saves"]), saves_clean=len(clean["saves"]),
+                save_s=[s["snapshot_s"] + s["write_s"] for s in faulted["saves"]],
+                faulted_wall_s=faulted["wall_s"], clean_wall_s=clean["wall_s"],
+                launcher_s=launch_s, launcher_done=[line for line in proc.stdout.splitlines()
+                                                    if line.startswith("done:")],
+                seconds=time.perf_counter() - t0)
+    emit(dict(phase="train_ft", card=card, bit_equal=True, **{
+        k: round(v, 6) if isinstance(v, float) else v for k, v in info.items()}))
+    return info
+
+
 def phase_attention_timing(q, k, v, causal: bool) -> dict:
     import torch
     import torch.nn.functional as F
@@ -2388,6 +2857,11 @@ def phase_sass(lib: Path) -> dict:
 
 
 def main() -> None:
+    import os
+
+    # cuBLAS reads this when its first handle is made: phase train_ft's
+    # deterministic algorithms need it, so it is set before torch loads
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -2395,7 +2869,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
     if not (ROOT / "src" / "repro_torch").is_dir() or not GOLDEN.exists() \
-            or not SERVE_GOLDEN.exists() or not SWEEP_GOLDEN.exists():
+            or not SERVE_GOLDEN.exists() or not SWEEP_GOLDEN.exists() \
+            or not TRAIN_GOLDEN.exists():
         fail(f"run from the repository root: {ROOT} holds no src/repro_torch")
     sys.path.insert(0, str(ROOT / "src"))
     dev = torch.device("cuda")
@@ -2469,7 +2944,16 @@ def main() -> None:
     serve = phase_serve(dev, smi)
     worst["attention"] = max(worst["attention"], serve["real_qkv_err"])
 
-    # 12. kernel timing at each path's largest call
+    # 12. the LM training path in f32 against the reference's goldens
+    train_golden = phase_train_golden(dev)
+
+    # 13. the LM training path at full size, then its weights served
+    train = phase_train(dev, smi)
+
+    # 14. the fault path at full width, bit-equal to a clean run; the launcher
+    train_ft = phase_train_ft(dev, smi)
+
+    # 15. kernel timing at each path's largest call
     timing = {"dram_timing": phase_kernel_timing(dev, info["batch"]),
               "edge_update": phase_edge_update_timing(
                   device_info["largest"]["edge_update"][1], device_info["foregraph_call"]),
@@ -2487,8 +2971,8 @@ def main() -> None:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, scenarios=rows, device_pairs=device_rows, sweep=sweep,
              search=search, sweep_server=sweep_server, multihost=multihost,
-             serve_golden=serve_golden, serve=serve, kernel_timing=timing,
-             attention_sass=sass),
+             serve_golden=serve_golden, serve=serve, train_golden=train_golden,
+             train=train, train_ft=train_ft, kernel_timing=timing, attention_sass=sass),
         indent=1) + "\n")
 
     replaces = {"dram_timing": "src/repro/kernels/dram_timing/dram_timing.py:120",
@@ -2505,6 +2989,8 @@ def main() -> None:
         sweep_launches=sweep["launches"][name],
         served_launches=sweep_server["served_launches"][name],
         multihost_launches=multihost["multihost_launches"][name],
+        **({"train_launches": train["train_launches"],
+            "train_serve_launches": train["serve_launches"]} if name == "attention" else {}),
         **{key: timing[name][key] for key in EXTRA_KEYS if key in timing[name]},
         card=smi) for name in KERNELS]))
     print(smi, flush=True)

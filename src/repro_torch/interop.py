@@ -7,8 +7,11 @@ to numpy arrays and plain dicts (``dataclasses.asdict``), so a caller can
 hand both packages the same inputs without the port importing the
 reference.  The LM scaffolding's weights cross the same way:
 ``lm_params_numpy`` makes a numpy parameter tree in the reference's layout,
-and ``load_lm_params`` carries such a tree (or a real reference init turned
-into numpy) into the port's ``Model``.
+``load_lm_params`` carries such a tree (or a real reference init turned
+into numpy) into the port's ``Model``, and ``lm_params_to_numpy`` turns the
+model's parameters (or any tensors named as them: gradients, moments) back
+into that layout.  ``load_opt_state`` carries a reference optimizer state
+into the port's.
 """
 from __future__ import annotations
 
@@ -132,44 +135,98 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _leaves(node, prefix: str = ""):
+def tree_leaves(node, prefix: str = ""):
     """(dotted path, array) of every leaf of a nested dict/list tree."""
     items = node.items() if isinstance(node, dict) else enumerate(node)
     for key, value in items:
         if isinstance(value, (dict, list, tuple)):
-            yield from _leaves(value, f"{prefix}{key}.")
+            yield from tree_leaves(value, f"{prefix}{key}.")
         else:
             yield f"{prefix}{key}", value
 
 
-def load_lm_params(model, tree: dict):
-    """Copy a reference-layout numpy tree (``lm_params_numpy``, or
-    ``jax.tree.map(np.asarray, params)`` of a reference init) into the
-    port's ``Model``.  Layer ``r * period + i`` takes ``blocks[i][leaf][r]``.
-    Raises on a missing, extra or misshaped leaf.  Returns the model."""
+def _stacked_targets(model) -> dict[str, list]:
+    """reference tree path -> [(parameter name, index on the stacked axis or
+    None)]: layer ``r * period + i`` is ``blocks[i][leaf][r]``."""
     from repro_torch.models.transformer import find_period
 
     period, _ = find_period(model.program)
-    # tree path -> [(param, index on the stacked axis or None)]
     targets: dict[str, list] = {}
-    for name, p in model.named_parameters():
+    for name, _ in model.named_parameters():
         if not name.startswith("blocks."):
-            targets[name] = [(p, None)]
+            targets[name] = [(name, None)]
             continue
         li, rest = name.split(".", 2)[1:]
         i, r = int(li) % period, int(li) // period
-        targets.setdefault(f"blocks.{i}.{rest}", []).append((p, r))
-    leaves = dict(_leaves(tree))
+        targets.setdefault(f"blocks.{i}.{rest}", []).append((name, r))
+    return targets
+
+
+def load_lm_params(model, tree: dict, tensors: dict | None = None):
+    """Copy a reference-layout numpy tree (``lm_params_numpy``, or
+    ``jax.tree.map(np.asarray, params)`` of a reference init) into the
+    port's ``Model``, or into ``tensors`` (parameter name -> tensor of that
+    parameter's shape, such as optimizer moments).  Layer ``r * period + i``
+    takes ``blocks[i][leaf][r]``.  Raises on a missing, extra or misshaped
+    leaf.  Returns the model."""
+    tensors = dict(model.named_parameters()) if tensors is None else tensors
+    targets = _stacked_targets(model)
+    leaves = dict(tree_leaves(tree))
     if leaves.keys() != targets.keys():
         raise ValueError(f"tree and model differ: only in the tree "
                          f"{sorted(leaves.keys() - targets.keys())}, only in the model "
                          f"{sorted(targets.keys() - leaves.keys())}")
     with torch.no_grad():
         for path, dests in targets.items():
-            for param, r in dests:
+            for name, r in dests:
+                dst = tensors[name]
                 t = _to_tensor(leaves[path] if r is None else np.asarray(leaves[path])[r])
-                if tuple(t.shape) != tuple(param.shape):
+                if tuple(t.shape) != tuple(dst.shape):
                     raise ValueError(f"{path}: tree has {tuple(t.shape)}, "
-                                     f"model {tuple(param.shape)}")
-                param.copy_(t.to(param.device, param.dtype))
+                                     f"model {tuple(dst.shape)}")
+                dst.copy_(t.to(dst.device, dst.dtype))
     return model
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_np_dtype("bfloat16"))
+    return t.numpy().copy()
+
+
+def lm_params_to_numpy(model, tensors: dict | None = None) -> dict:
+    """The inverse of ``load_lm_params``: a numpy tree in the reference's
+    layout (layers re-stacked per period position on axis 0) of the model's
+    parameters, or of ``tensors`` (parameter name -> tensor of that
+    parameter's shape, such as gradients or optimizer moments)."""
+    tensors = dict(model.named_parameters()) if tensors is None else tensors
+    tree: dict = {}
+    for path, dests in _stacked_targets(model).items():
+        if dests[0][1] is None:
+            value = _numpy(tensors[dests[0][0]])
+        else:
+            value = np.stack([_numpy(tensors[name]) for name, _ in sorted(
+                dests, key=lambda d: d[1])])
+        keys = path.split(".")
+        node = tree
+        for key, nxt in zip(keys[:-1], keys[1:]):
+            if isinstance(node, list):  # the blocks, one dict a period position
+                while len(node) <= int(key):
+                    node.append({})
+                node = node[int(key)]
+            else:
+                node = node.setdefault(key, [] if nxt.isdigit() else {})
+        node[keys[-1]] = value
+    return tree
+
+
+def load_opt_state(model, state: dict, tree: dict) -> dict:
+    """Copy a reference-layout optimizer state (``{"step", "m", "v"}`` as
+    numpy, from ``repro.train.optimizer``) into the port's ``state`` (from
+    ``train.optimizer.init`` for ``model``), in place.  Returns ``state``."""
+    with torch.no_grad():
+        state["step"].copy_(torch.as_tensor(np.array(tree["step"])))
+    load_lm_params(model, tree["m"], state["m"])
+    load_lm_params(model, tree["v"], state["v"])
+    return state

@@ -8,7 +8,9 @@ CUDA tensor it launches the hand-written kernel ``csrc/attention.cu`` (the
 port of ``repro/kernels/attention/attention.py::flash_attention_pallas``)
 or raises; on a CPU tensor it takes ``attention_plain``.  The kernel takes
 f32 (scalar FMAs) and bf16 (wgmma, fed by TMA), head_dim 32, 64 and 128,
-and any S.
+and any S.  It has no backward: on the card, a call that autograd would
+differentiate raises (training attends through ``models.attention._sdpa``,
+as the reference trains).
 """
 from __future__ import annotations
 
@@ -70,13 +72,19 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
     """Attention of ``(B, S, nq, hd)`` queries over ``(B, S, nkv, hd)`` keys
     and values; returns ``(B, S, nq, hd)`` in q's dtype.  CUDA tensors
-    launch the kernel on the current stream (no sync); CPU tensors take the
-    plain version.  Anything else raises."""
+    launch the kernel on the current stream (no sync), and raise where
+    autograd would need a backward; CPU tensors take the plain version,
+    which autograd differentiates.  Anything else raises."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "the attention kernel has no backward: training takes "
+            "models.attention._sdpa (train_self_attention); call the kernel "
+            "under torch.no_grad() or on tensors that do not require grad")
     b, s, nq, hd = q.shape
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"the attention kernel takes float32 or bfloat16, not {q.dtype}")

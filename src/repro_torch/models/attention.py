@@ -1,14 +1,17 @@
-"""Grouped-query attention for prefill and decode (port of
-``repro/models/attention.py``, the parts that serving uses).
+"""Grouped-query attention for training, prefill and decode (port of
+``repro/models/attention.py``, the dense family's parts).
 
-One deliberate difference from the reference: causal prefill
-self-attention goes through the port's attention kernel
-(``kernels.attention.ops.flash_attention``, ``csrc/attention.cu`` on the
-card), where the reference computes it with einsum ``_sdpa`` (or the
-query-chunked ``_blocked_sdpa``) to keep its dry-run's XLA cost analysis
-readable.  The function is the same; the results are allclose.  Decode
-keeps ``_sdpa`` over the whole cache with the ``<= pos`` mask, as the
-reference does.
+Training takes the reference's own math: einsum ``_sdpa`` with the additive
+``causal_mask``, or the query-chunked ``_blocked_sdpa`` above
+``BLOCKED_ATTN_THRESHOLD`` (``train_self_attention``), so autograd
+differentiates plain torch ops.  Serving differs from the reference on
+purpose: causal prefill self-attention goes through the port's attention
+kernel (``kernels.attention.ops.flash_attention``, ``csrc/attention.cu`` on
+the card), where the reference computes it with ``_sdpa`` to keep its
+dry-run's XLA cost analysis readable.  The function is the same; the
+results are allclose.  The kernel has no backward and refuses to be
+differentiated on the card.  Decode keeps ``_sdpa`` over the whole cache
+with the ``<= pos`` mask, as the reference does.
 
 The KV cache has the reference's layout, ``(B, max_seq, nkv, hd)`` per
 layer.  Unlike the reference's functional update, prefill and decode write
@@ -105,6 +108,28 @@ def causal_mask(sq: int, sk: int, q_offset: int = 0, device=None) -> torch.Tenso
     return mask[None, None, :, :]
 
 
+# Above this sequence length the S x S logits no longer fit and training
+# attention switches to the query-chunked form, as in the reference.
+BLOCKED_ATTN_THRESHOLD = 8192
+Q_CHUNK = 512
+
+
+def _blocked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                  q_chunk: int = Q_CHUNK) -> torch.Tensor:
+    """Query-chunked attention, K/V resident: ``_sdpa`` on each block of
+    ``q_chunk`` queries, so the live logits are (B, heads, q_chunk, S)
+    rather than (B, heads, S, S).  Raises unless S is a multiple of the
+    chunk, as the reference asserts."""
+    b, s, nq, hd = q.shape
+    if s % q_chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the query chunk {q_chunk}")
+    outs = []
+    for i in range(s // q_chunk):
+        mask = causal_mask(q_chunk, s, i * q_chunk, q.device) if causal else None
+        outs.append(_sdpa(q[:, i * q_chunk:(i + 1) * q_chunk], k, v, mask))
+    return torch.cat(outs, dim=1)
+
+
 def sequence_positions(x: torch.Tensor) -> torch.Tensor:
     """0..S-1 for every row of x (B, S, ...)."""
     b, s = x.shape[:2]
@@ -121,10 +146,28 @@ def attend(p: Attention, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def self_attention(p: Attention, cfg, x: torch.Tensor,
                    positions: torch.Tensor | None = None,
                    causal: bool = True) -> torch.Tensor:
-    """Full self-attention (prefill). x: (B, S, D)."""
+    """Full self-attention through the kernel (prefill and
+    ``Model.forward``; not differentiable on the card). x: (B, S, D)."""
     if positions is None:
         positions = sequence_positions(x)
     return attend(p, *_project_qkv(p, cfg, x, positions), causal=causal)
+
+
+def train_self_attention(p: Attention, cfg, x: torch.Tensor,
+                         positions: torch.Tensor | None = None,
+                         causal: bool = True) -> torch.Tensor:
+    """Full self-attention for training, differentiable (the reference's
+    ``self_attention``): ``_blocked_sdpa`` above ``BLOCKED_ATTN_THRESHOLD``
+    when S is a multiple of ``Q_CHUNK``, else ``_sdpa``. x: (B, S, D)."""
+    s = x.shape[1]
+    if positions is None:
+        positions = sequence_positions(x)
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    if s > BLOCKED_ATTN_THRESHOLD and s % Q_CHUNK == 0:
+        out = _blocked_sdpa(q, k, v, causal)
+    else:
+        out = _sdpa(q, k, v, causal_mask(s, s, device=x.device) if causal else None)
+    return out @ p.wo
 
 
 # ---------------------------------------------------------------------------

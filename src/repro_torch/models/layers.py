@@ -1,5 +1,5 @@
-"""Shared layers of the LM zoo, the parts that serving uses (port of
-``repro/models/layers.py``).
+"""Shared layers of the LM zoo, the parts that the dense family's serving
+and training use (port of ``repro/models/layers.py``).
 
 Plain functions on tensors.  Compute runs in the config dtype (bf16 on the
 card) with f32 where the reference takes it (norms, RoPE, the SwiGLU
@@ -54,9 +54,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
 
 
 def weight(*shape: int, dtype, device, fill: float = 0.0) -> nn.Parameter:
-    """A serving weight: a parameter without gradient, filled with ``fill``."""
-    return nn.Parameter(torch.full(shape, fill, dtype=dtype, device=device),
-                        requires_grad=False)
+    """A trainable parameter filled with ``fill``.  Serving runs under
+    ``torch.no_grad()``, so it builds no graph through it."""
+    return nn.Parameter(torch.full(shape, fill, dtype=dtype, device=device))
 
 
 class RMSNorm(nn.Module):
@@ -109,3 +109,23 @@ def unembed(x: torch.Tensor, tok: torch.Tensor,
     if head is not None:
         return x @ head
     return x @ tok.t()
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy in f32: logsumexp of the upcast logits less
+    the gold logit (a gather, no one-hot).  With ``mask``, the masked mean,
+    divided by ``max(sum(mask), 1)``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -1,13 +1,19 @@
-"""Model-level API for serving (port of ``repro/models/model.py``, dense
-family).
+"""Model-level API for training and serving (port of
+``repro/models/model.py``, dense family).
 
 ``Model(cfg, device=None)`` is an ``nn.Module`` that holds its weights,
 named as the reference's parameter pytree (``embed.tok``, ``embed.head``,
 ``blocks.<layer>.{norm1,attn,norm2,mlp}.*``, ``final_norm.scale``).  It is
 allocated on ``device`` (``None``: the CUDA card, raising without one) and
 filled by ``init(generator)`` or by ``interop.load_lm_params``.  Batches
-are dicts ``{"tokens": (B, S) int}``, as in the reference; decode takes
-``tokens (B, 1)``, the cache and one position for the whole batch.
+are dicts ``{"tokens": (B, S) int, "labels": (B, S) int, ["mask"]}``, as
+in the reference; decode takes ``tokens (B, 1)``, the cache and one
+position for the whole batch.
+
+``loss`` is differentiable: it attends through ``_sdpa`` under remat, as
+the reference trains.  ``forward``, ``prefill`` and ``decode_step`` run
+under ``torch.no_grad()`` and attend through the kernel, so serving builds
+no autograd graph although the weights are trainable.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from repro_torch.models.layers import (
     dtype_of,
     embed,
     embed_init_,
+    softmax_xent,
     unembed,
     weight,
 )
@@ -90,6 +97,9 @@ class Model(nn.Module):
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device)
 
+    def _embed(self, tokens) -> torch.Tensor:
+        return embed(self.embed.tok, self._tokens(tokens)).to(self.dtype)
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = self.final_norm(x)
         logits = unembed(x, self.embed.tok, self.embed.head)
@@ -99,10 +109,30 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def forward(self, batch: dict) -> torch.Tensor:
-        """Logits (B, S, vocab_padded) in the compute dtype."""
-        x = embed(self.embed.tok, self._tokens(batch["tokens"])).to(self.dtype)
-        x = tf.stack_forward(self.blocks, self.cfg, x)
+        """Logits (B, S, vocab_padded) in the compute dtype, through the
+        attention kernel."""
+        x = tf.stack_forward(self.blocks, self.cfg, self._embed(batch["tokens"]))
         return self._logits(x)
+
+    # ---- training ----
+
+    def train_forward(self, batch: dict) -> torch.Tensor:
+        """Logits (B, S, vocab_padded) in the compute dtype through the
+        training path: ``_sdpa`` attention, remat as ``cfg.remat`` says.
+        Differentiable."""
+        x = tf.stack_forward(self.blocks, self.cfg, self._embed(batch["tokens"]),
+                             block=tf.apply_train_block, remat=self.cfg.remat)
+        return self._logits(x)
+
+    def loss(self, batch: dict):
+        """Mean next-token cross-entropy.  Returns (loss, {"ce": ce})."""
+        if self.cfg.n_experts:
+            raise tf.not_ported(f"the MoE aux losses of {self.cfg.arch}", "moe")
+        labels = self._tokens(batch["labels"])
+        mask = batch.get("mask")
+        ce = softmax_xent(self.train_forward(batch), labels,
+                          None if mask is None else self._tokens(mask))
+        return ce, {"ce": ce}
 
     # ---- serving ----
 
@@ -114,15 +144,15 @@ class Model(nn.Module):
     def prefill(self, batch: dict, cache: dict):
         """Run the full prompt, fill the cache; returns (last_logits (B, 1,
         vocab_padded), cache)."""
-        x = embed(self.embed.tok, self._tokens(batch["tokens"])).to(self.dtype)
-        x, blocks = tf.stack_prefill(self.blocks, self.cfg, x, cache["blocks"])
+        x, blocks = tf.stack_prefill(self.blocks, self.cfg, self._embed(batch["tokens"]),
+                                     cache["blocks"])
         return self._logits(x[:, -1:, :]), dict(cache, blocks=blocks)
 
     @torch.no_grad()
     def decode_step(self, tokens, cache: dict, pos: int):
         """One token for the whole batch.  tokens: (B, 1); pos: int."""
-        x = embed(self.embed.tok, self._tokens(tokens)).to(self.dtype)
-        x, blocks = tf.stack_decode(self.blocks, self.cfg, x, cache["blocks"], int(pos))
+        x, blocks = tf.stack_decode(self.blocks, self.cfg, self._embed(tokens),
+                                    cache["blocks"], int(pos))
         return self._logits(x), dict(cache, blocks=blocks)
 
 

@@ -1,5 +1,5 @@
 """Layer program and block stack (port of ``repro/models/transformer.py``,
-the dense family's serving parts).
+the dense family's parts).
 
 Every architecture is described by a per-layer (mixer, ffn) program,
 exactly as in the reference.  The port runs the dense program
@@ -7,10 +7,17 @@ exactly as in the reference.  The port runs the dense program
 layer: PyTorch runs eagerly, so there is no scan and no stacking of
 parameters over repeats (``interop.load_lm_params`` unstacks the
 reference's layout).  Any other mixer or ffn raises ``NotImplementedError``.
+
+Two blocks run the full sequence: ``apply_block`` attends through the
+kernel (serving's ``Model.forward``), ``apply_train_block`` through
+``_sdpa`` (``Model.loss``).  ``stack_forward`` runs either, and with
+``remat`` recomputes each period's activations in the backward pass
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
@@ -24,6 +31,7 @@ from repro_torch.models.attention import (
     kv_cache_init,
     self_attention,
     sequence_positions,
+    train_self_attention,
 )
 from repro_torch.models.layers import RMSNorm, dense_init_, mlp, weight
 
@@ -125,14 +133,53 @@ class Block(nn.Module):
 
 
 def apply_block(p: Block, cfg, x: torch.Tensor) -> torch.Tensor:
-    """One block over the full sequence."""
+    """One block over the full sequence, attending through the kernel."""
     x = x + self_attention(p.attn, cfg, p.norm1(x), causal=True)
     return x + p.mlp(p.norm2(x))
 
 
-def stack_forward(blocks, cfg, x: torch.Tensor) -> torch.Tensor:
-    for p in blocks:
-        x = apply_block(p, cfg, x)
+def apply_train_block(p: Block, cfg, x: torch.Tensor) -> torch.Tensor:
+    """One block over the full sequence, differentiable: the reference's
+    ``apply_block``, attending through ``_sdpa``."""
+    x = x + train_self_attention(p.attn, cfg, p.norm1(x), causal=True)
+    return x + p.mlp(p.norm2(x))
+
+
+# matmuls without batch dims: what jax's dots_with_no_batch_dims_saveable
+# keeps (``x @ w`` of a (B, S, D) activation folds to one ``mm``)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def stack_forward(blocks, cfg, x: torch.Tensor, block=apply_block,
+                  remat: bool = False) -> torch.Tensor:
+    """Run ``block`` through the stack.  With ``remat``, each period of the
+    layer program runs under ``torch.utils.checkpoint``, keeping only its
+    input for the backward pass (``cfg.remat_policy`` "full"), or also its
+    weight matmuls' outputs ("dots")."""
+
+    def run(x, group):
+        for p in group:
+            x = block(p, cfg, x)
+        return x
+
+    if not remat:
+        return run(x, blocks)
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _save_dots)
+    period, _ = find_period(layer_program(cfg))
+    for i in range(0, len(blocks), period):
+        x = checkpoint(run, x, blocks[i:i + period], use_reentrant=False, **kw)
     return x
 
 

@@ -204,7 +204,7 @@ def test_lm_params_numpy_matches_init_abstract(arch, cut):
     period, reps = find_period(layer_program(cfg))
     assert (period, reps) == (1, cfg.n_layers)
     last = model.blocks[reps - 1].attn.wk
-    np.testing.assert_array_equal(last.float().numpy(),
+    np.testing.assert_array_equal(last.detach().float().numpy(),
                                   np.asarray(tree["blocks"][0]["attn"]["wk"][reps - 1],
                                              np.float32))
     np.testing.assert_array_equal(lm_params_numpy(cfg, 0)["embed"]["tok"], tree["embed"]["tok"])
