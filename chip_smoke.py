@@ -136,10 +136,14 @@ Phases, one JSON line each on stdout:
 10. serve_golden -- the LM serving path in f32 on the card against
               ``tests/data/torch_golden_serve.json`` (written from the JAX
               reference): ``qwen3_0_6b.reduced()`` and qwen3 at full width
-              cut to 2 layers, weights from ``interop.lm_params_numpy``.
+              cut to 2 layers, the ``reduced()`` qwen2-moe, arctic, jamba
+              and rwkv6, rwkv6 at full width cut to 2 layers and qwen2-moe
+              at full width cut to 1 layer (60 experts; the CPU tests skip
+              this one), weights from ``interop.lm_params_numpy``.
               Teacher-forced logits of every step within the file's
               tolerance; ``ServeEngine``'s greedy tokens equal up to each
-              request's first near-tie (counted and printed).
+              request's first near-tie (counted and printed, with each MoE
+              golden's smallest router top-k gap).
 11. serve  -- the LM serving path at full size: ``qwen3_0_6b`` at its
               published widths and depth (28 layers) in bf16, weights from
               ``Model.init`` with a seeded generator on the card.
@@ -152,14 +156,34 @@ Phases, one JSON line each on stdout:
               its plain version on the real q/k/v of layer 0 of wave 1.
               Printed: wall per wave, prefill and decode tokens per second,
               and the share of prefill time inside the attention kernel.
-12. train_golden -- the LM training path in f32 on the card (TF32 off)
+12. serve_families -- the MoE, hybrid and SSM families at their published
+              widths in bf16 through ``ServeEngine(batch=4)``, weights from
+              ``Model.init`` with a seeded generator on the card, one model
+              at a time: ``qwen2_moe_a2_7b`` (24 layers, 1,024-token
+              prompts), ``rwkv6_1_6b`` (24 layers, 256), ``jamba_v0_1_52b``
+              cut to one period of 8 layers (256) and ``arctic_480b`` cut to
+              1 layer (1,024), 8 requests of 32 new tokens each (two waves).
+              Checks: every request answered with tokens in the vocab, every
+              logit finite, the attention kernel launched once an attention
+              layer a wave (none for rwkv6), the kernel against its plain
+              version on qwen2-moe's real layer-0 q/k/v, and rwkv6's
+              recurrence: prefill of the prompt and one token equals
+              prefill then decode of that token, in bf16 within
+              ``FAMILY_INVARIANT_FLOOR_FACTOR`` times bf16's own noise
+              floor (the same prefill batched against one row at a time)
+              and in f32 (the weights widened) within
+              ``FAMILY_INVARIANT_TOL_F32``.  Printed per config: init, prefill
+              and decode seconds, prefill and decode tokens/s, peak memory,
+              the kernels of one decode step and its idle share
+              (``torch.profiler``), attention launches.
+13. train_golden -- the LM training path in f32 on the card (TF32 off)
               against ``tests/data/torch_golden_train.json`` (written from
               the JAX reference): ``qwen3_0_6b.reduced()`` and qwen3 at full
               width cut to 2 layers, 3 ``make_train_step`` steps each on
               seeded ``SyntheticLM`` batches; losses and grad norms at rtol
               1e-4, the weights' leaf sums, norms and change norms at the
               file's tolerances.
-13. train  -- the LM training path at full size: ``qwen3_0_6b`` at its
+14. train  -- the LM training path at full size: ``qwen3_0_6b`` at its
               published widths and depth in bf16, weights from ``Model.init``
               with a seeded generator on the card, 30 steps of 8 x 1,024
               ``SyntheticLM`` tokens (ids below 8,192: over the whole vocab
@@ -179,7 +203,7 @@ Phases, one JSON line each on stdout:
               card's idle share and its ms by kind of kernel and heaviest
               kernels over 3 steady steps (``torch.profiler``),
               the checkpoint's bytes, save and restore seconds.
-14. train_ft -- the fault path at full width cut to 2 layers (4 x 256
+15. train_ft -- the fault path at full width cut to 2 layers (4 x 256
               tokens, 12 steps, sync checkpoints every 4 steps, ~1.9 GB
               each, under ``build/``): failures injected at steps 5 and 9
               must end with parameters and moments bit-equal to a clean run.
@@ -190,12 +214,13 @@ Phases, one JSON line each on stdout:
               repro_torch.launch.train --layers 2 --steps 4`` as a child, no
               ``--device`` (the card), must exit 0 (log in
               ``chiprun_out/train_launch.log``).
-15. kernels -- one line per ported kernel: launches on its path (and in
+16. kernels -- one line per ported kernel: launches on its path (and in
               the sweep's engines run, ``sweep_launches``, in the sweep
               server's workers, ``served_launches``, in the multi-host
               phase's hosts, ``multihost_launches``, and for attention in
-              phase train's steps, ``train_launches`` (0), and its serving
-              of the trained weights, ``train_serve_launches``), its time at
+              phase train's steps, ``train_launches`` (0), its serving
+              of the trained weights, ``train_serve_launches``, and phase
+              serve_families' runs, ``families_launches``), its time at
               the path's largest call (CUDA events), its bound, the plain
               version's time and, where one PyTorch call computes the same
               function, that call's time.  ``ms`` is the mean of calls
@@ -254,6 +279,25 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SERVE_ARCH = "qwen3_0_6b"
 SERVE_BATCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 8, 1024, 32
 SERVE_MAX_SEQ = 1056
+# phase serve_families: the MoE, hybrid and SSM families at their published
+# widths in bf16, (arch, layers or None for the published depth, prompt
+# tokens); 2 waves of SERVE_BATCH requests, FAMILY_NEW new tokens each.
+# jamba is cut to one period (8 layers: 51.4 B params, 103 GB, do not fit
+# the card) and arctic to 1 of 35 layers; rwkv and jamba take 256-token
+# prompts, as their time scans are eager per-token loops.
+FAMILY_SERVE = (("qwen2_moe_a2_7b", None, 1024), ("rwkv6_1_6b", None, 256),
+                ("jamba_v0_1_52b", 8, 256), ("arctic_480b", 1, 1024))
+FAMILY_REQUESTS, FAMILY_NEW = 8, 32
+FAMILY_QKV_ARCH = "qwen2_moe_a2_7b"  # B4 against plain on its real layer-0 q/k/v
+# rwkv6's recurrence: prefill(prompt + [t]) against prefill(prompt) then
+# decode_step([t]).  In bf16 the two run matmuls of other shapes (S rows
+# against one), whose outputs round apart by bf16 ulps through 24 layers:
+# the same prefill batched and one row at a time differ by as much (0.17
+# on logits of std 1 on an H100), so bf16 is held to a multiple of that
+# floor, measured in the same run, and f32 (the same weights, widened) to
+# an absolute tolerance (6.4e-5 measured there)
+FAMILY_INVARIANT_FLOOR_FACTOR = 3.0
+FAMILY_INVARIANT_TOL_F32 = 1e-3
 # rounds of the alternated kernel / library timings (median and spread)
 TIMING_ROUNDS = 7
 # the bf16 attention kernel must run wgmma and load by TMA: SASS opcodes
@@ -2255,7 +2299,7 @@ def phase_serve_golden(dev) -> dict:
                   f"serve golden {g['name']}: request {r.rid} tokens {r.out.tolist()} "
                   f"!= {tokens[r.rid].tolist()}")
         out[g["name"]] = dict(max_abs_err=err, near_ties=ties, tokens_compared=compared,
-                              tokens=n * max_new)
+                              tokens=n * max_new, router_min_gap=g.get("router_min_gap"))
         del model, cache
     emit(dict(phase="serve_golden", configs=out, tolerance=tol, near_tie=near_tie,
               dtype="float32", seconds=round(time.perf_counter() - t0, 3)))
@@ -2372,6 +2416,171 @@ def phase_serve(dev, card: str) -> dict:
     del model, engine
     torch.cuda.empty_cache()
     return info
+
+
+def recurrence_invariant(model, toks, nxt) -> dict:
+    """The last logits of ``prefill(toks + nxt)`` against ``prefill(toks)``
+    then ``decode_step(nxt)``: in the model's bf16 beside bf16's noise
+    floor (the extended prefill batched against one row at a time), then
+    in f32 with the same weights widened (the model is left in f32)."""
+    import dataclasses
+
+    import torch
+
+    vocab, s = model.cfg.vocab, toks.shape[1]
+
+    def last(tokens, extra=None):
+        cache = model.init_cache(tokens.shape[0], s + 2)
+        logits, cache = model.prefill({"tokens": tokens}, cache)
+        if extra is not None:
+            logits, _ = model.decode_step(extra, cache, s)
+        return logits[:, -1, :vocab].float()
+
+    ext = torch.cat([toks, nxt], dim=1)
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        if dtype == "float32":
+            model.float()
+            model.cfg = dataclasses.replace(model.cfg, dtype="float32")
+        whole, stepped = last(ext), last(toks, nxt)
+        err = float((whole - stepped).abs().max())
+        out[f"invariant_{dtype}"] = dict(
+            max_abs_err=err, logit_std=float(whole.std()),
+            argmax_equal=bool(torch.equal(whole.argmax(-1), stepped.argmax(-1))))
+        if dtype == "bfloat16":
+            rows = torch.cat([last(ext[i:i + 1]) for i in range(ext.shape[0])])
+            floor = float((whole - rows).abs().max())
+            out[f"invariant_{dtype}"].update(noise_floor=floor,
+                                             floor_factor=FAMILY_INVARIANT_FLOOR_FACTOR)
+            check(err <= FAMILY_INVARIANT_FLOOR_FACTOR * floor,
+                  f"rwkv6 bf16: prefill(prompt + [t]) != prefill(prompt) + decode([t]): "
+                  f"{err} > {FAMILY_INVARIANT_FLOOR_FACTOR} x the noise floor {floor}")
+        else:
+            out[f"invariant_{dtype}"]["tolerance"] = FAMILY_INVARIANT_TOL_F32
+            check(err <= FAMILY_INVARIANT_TOL_F32,
+                  f"rwkv6 f32: prefill(prompt + [t]) != prefill(prompt) + decode([t]): "
+                  f"{err} > {FAMILY_INVARIANT_TOL_F32}")
+    return out
+
+
+def phase_serve_families(dev, card: str) -> dict:
+    """The MoE, hybrid and SSM families in bf16 through ``ServeEngine.run``,
+    one model at a time (each freed before the next is built); the launch
+    counts are zeroed just before each run and read just after."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import _platform
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import layer_program
+    from repro_torch.serve.legacy.engine import Request, ServeEngine
+
+    out = {}
+    t_phase = time.perf_counter()
+    for arch, layers, prompt_len in FAMILY_SERVE:
+        cfg = get_arch(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        n_attn = sum(1 for spec in layer_program(cfg) if spec.mixer == "attn")
+        max_seq = prompt_len + FAMILY_NEW
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        params = sum(p.numel() for p in model.parameters())
+        rng = np.random.default_rng(2026)
+        prompts = [rng.integers(0, cfg.vocab, prompt_len).astype(np.int32)
+                   for _ in range(FAMILY_REQUESTS)]
+        engine = ServeEngine(model, batch=SERVE_BATCH, max_seq=max_seq)
+        # set-up: one short wave warms cuBLAS and the lazily loaded kernels
+        engine.run([Request(rid=0, prompt=prompts[0][:64], max_new=2)])
+
+        phases: list = []  # (kind, seconds) of every prefill / decode call
+        finite: list = []  # a 0-d bool tensor a call: its logits are finite
+        prefill, decode = engine.prefill, engine.decode
+
+        def timed(kind, fn):
+            def call(*args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, cache = fn(*args)
+                torch.cuda.synchronize()
+                phases.append((kind, time.perf_counter() - t))
+                finite.append(torch.isfinite(logits[..., : cfg.vocab]).all())
+                return logits, cache
+            return call
+
+        engine.prefill, engine.decode = timed("prefill", prefill), timed("decode", decode)
+        requests = [Request(rid=i, prompt=p, max_new=FAMILY_NEW) for i, p in enumerate(prompts)]
+        waves = -(-FAMILY_REQUESTS // SERVE_BATCH)
+        with KernelRecorder(keep_inputs=arch == FAMILY_QKV_ARCH) as rec:
+            _platform.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = engine.run(requests)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _platform.launch_counts()
+        calls = sum(1 for e in rec.events if e[0] == "attention")
+        engine.prefill, engine.decode = prefill, decode
+        check(sorted(r.rid for r in done) == list(range(FAMILY_REQUESTS)),
+              f"{arch}: served {len(done)} of {FAMILY_REQUESTS} requests")
+        for r in done:
+            check(r.out is not None and len(r.out) == FAMILY_NEW
+                  and bool(np.all((r.out >= 0) & (r.out < cfg.vocab))),
+                  f"{arch}: request {r.rid} got {r.out}")
+        check(bool(torch.stack(finite).all()), f"{arch}: non-finite logits on the path")
+        check(counts["attention"] == n_attn * waves == calls,
+              f"{arch}: attention launches {counts['attention']} (calls {calls}) != "
+              f"{n_attn} attention layers x {waves} waves")
+        check((counts["attention"] > 0) == (arch != "rwkv6_1_6b"),
+              f"{arch}: attention launches {counts['attention']}")
+
+        prefill_s = sum(t for k, t in phases if k == "prefill")
+        decode_s = sum(t for k, t in phases if k == "decode")
+        decode_steps = sum(1 for k, _ in phases if k == "decode")
+        # one decode step of a prefilled wave, profiled: kernels and idle share
+        cache = model.init_cache(SERVE_BATCH, max_seq)
+        toks = torch.from_numpy(np.stack(prompts[:SERVE_BATCH])).to(dev)
+        logits, cache = model.prefill({"tokens": toks}, cache)
+        nxt = torch.argmax(logits[:, -1, : cfg.vocab], dim=-1).to(torch.int32)[:, None]
+        step = device_profile(lambda: model.decode_step(nxt, cache, prompt_len), reps=3)
+        info = dict(arch=arch, dtype=cfg.dtype, n_layers=cfg.n_layers,
+                    published_layers=get_arch(arch).n_layers, params=params,
+                    requests=FAMILY_REQUESTS, batch=SERVE_BATCH, waves=waves,
+                    prompt_tokens=prompt_len, new_tokens=FAMILY_NEW, init_s=init_s,
+                    wall_s=wall, prefill_s=prefill_s, decode_s=decode_s,
+                    prefill_tok_per_s=waves * SERVE_BATCH * prompt_len / prefill_s,
+                    decode_tok_per_s=decode_steps * SERVE_BATCH / decode_s,
+                    decode_steps=decode_steps, attention_launches=counts["attention"],
+                    decode_step_kernels=step.get("device_events"),
+                    decode_step_idle_share=step.get("idle_share"),
+                    decode_step_busy_ms=step.get("busy_ms"),
+                    decode_step_window_ms=step.get("window_ms"),
+                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if arch == FAMILY_QKV_ARCH:
+            # B4 against its plain version on the real layer-0 q/k/v of wave 1
+            q, k, v = rec.largest["attention"][1]
+            info["real_qkv_err"] = compare_attention(q, k, v, True,
+                                                     f"{arch}'s layer 0 in serving")
+            info["real_qkv_shape"] = [list(q.shape), list(k.shape)]
+        if arch == "rwkv6_1_6b":  # last: it widens the weights to f32
+            info.update(recurrence_invariant(model, toks, nxt))
+        emit(dict(phase="serve_families", card=card, **{
+            k: round(v, 6) if isinstance(v, float) else v for k, v in info.items()}))
+        out[arch] = info
+        # the engine's bound methods hold the model too
+        del model, engine, prefill, decode, rec, cache, logits, toks, nxt
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(dict(phase="serve_families", configs=len(out),
+              seconds=round(time.perf_counter() - t_phase, 3)))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2944,16 +3153,21 @@ def main() -> None:
     serve = phase_serve(dev, smi)
     worst["attention"] = max(worst["attention"], serve["real_qkv_err"])
 
-    # 12. the LM training path in f32 against the reference's goldens
+    # 12. the MoE, hybrid and SSM families at full width
+    families = phase_serve_families(dev, smi)
+    worst["attention"] = max(worst["attention"], families[FAMILY_QKV_ARCH]["real_qkv_err"])
+    families_launches = sum(f["attention_launches"] for f in families.values())
+
+    # 13. the LM training path in f32 against the reference's goldens
     train_golden = phase_train_golden(dev)
 
-    # 13. the LM training path at full size, then its weights served
+    # 14. the LM training path at full size, then its weights served
     train = phase_train(dev, smi)
 
-    # 14. the fault path at full width, bit-equal to a clean run; the launcher
+    # 15. the fault path at full width, bit-equal to a clean run; the launcher
     train_ft = phase_train_ft(dev, smi)
 
-    # 15. kernel timing at each path's largest call
+    # 16. kernel timing at each path's largest call
     timing = {"dram_timing": phase_kernel_timing(dev, info["batch"]),
               "edge_update": phase_edge_update_timing(
                   device_info["largest"]["edge_update"][1], device_info["foregraph_call"]),
@@ -2971,7 +3185,8 @@ def main() -> None:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, scenarios=rows, device_pairs=device_rows, sweep=sweep,
              search=search, sweep_server=sweep_server, multihost=multihost,
-             serve_golden=serve_golden, serve=serve, train_golden=train_golden,
+             serve_golden=serve_golden, serve=serve, serve_families=families,
+             train_golden=train_golden,
              train=train, train_ft=train_ft, kernel_timing=timing, attention_sass=sass),
         indent=1) + "\n")
 
@@ -2990,7 +3205,8 @@ def main() -> None:
         served_launches=sweep_server["served_launches"][name],
         multihost_launches=multihost["multihost_launches"][name],
         **({"train_launches": train["train_launches"],
-            "train_serve_launches": train["serve_launches"]} if name == "attention" else {}),
+            "train_serve_launches": train["serve_launches"],
+            "families_launches": families_launches} if name == "attention" else {}),
         **{key: timing[name][key] for key in EXTRA_KEYS if key in timing[name]},
         card=smi) for name in KERNELS]))
     print(smi, flush=True)

@@ -4,9 +4,9 @@ Plain data, copied from the reference field for field: every architecture
 is one ``ArchConfig`` registered by its own module
 (``repro_torch/configs/<id>.py``), with the published widths and depth.
 ``reduced()`` yields the small same-family config of the CPU tests.  The
-port serves the ``dense`` family (``repro_torch.models``); the other
-families' configs are here so that every field stays comparable with the
-reference.
+port serves the dense, MoE, hybrid and SSM families (``repro_torch.models``);
+the encoder-decoder and vision-language configs are here so that every
+field stays comparable with the reference.
 """
 from __future__ import annotations
 

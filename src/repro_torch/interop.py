@@ -79,53 +79,120 @@ def _np_dtype(name: str):
 
 def lm_params_numpy(cfg, seed: int = 0) -> dict:
     """A numpy parameter tree with exactly the structure, shapes and dtypes
-    of the reference's ``Model(cfg).init_abstract()`` for a dense ``cfg``:
-    the blocks are stacked per period position on axis 0 (the dense
-    program's period is 1, so one entry of ``n_layers`` stacked layers),
-    and weights are ``(in, out)``.  Values come from
-    ``np.random.default_rng(seed)``: fan-in truncated normals for the
-    weights, normal x 0.01 for the embedding, and norm scales and biases
-    drawn around their init values (1 and 0) so that carrying them over is
-    tested too."""
+    of the reference's ``Model(cfg).init_abstract()`` for a ``cfg`` of a
+    ported family: the blocks are stacked per period position of
+    ``layer_program(cfg)`` on axis 0 (a list of ``period`` dicts whose
+    leaves stack the ``n_layers / period`` repeats), weights are ``(in,
+    out)``, and the leaves that the reference keeps in f32 (the router, the
+    SSM decays and mixes) are f32 in a bf16 tree too.  Values come from
+    ``np.random.default_rng(seed)``, leaf by leaf in a fixed order: fan-in
+    truncated normals for the weights (std 0.5 for mamba's conv), normal x
+    0.01 for the embedding, normal x 0.1 for rwkv's bonus ``u``, and every
+    other leaf drawn around its init value (norm scales and ``D`` around 1,
+    biases around 0, the token-shift mixes around 0.5, ``w0`` around -6,
+    ``A_log`` around log(1..d_state)) so that carrying it over is tested
+    too."""
+    from repro_torch.models import ssm
     from repro_torch.models.model import padded_vocab
-    from repro_torch.models.transformer import find_period, layer_program, not_ported
+    from repro_torch.models.transformer import (
+        PORTED_FAMILIES,
+        find_period,
+        layer_program,
+        not_ported,
+    )
 
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise not_ported(f"family {cfg.family!r} ({cfg.arch})", cfg.family)
     rng = np.random.default_rng(seed)
     dtype = _np_dtype(cfg.dtype)
-    _, reps = find_period(layer_program(cfg))
+    program = layer_program(cfg)
+    period, reps = find_period(program)
     d, hd, dff, vp = cfg.d_model, cfg.head_dim, cfg.d_ff, padded_vocab(cfg.vocab)
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
 
-    def dense(*shape):
+    def dense(*shape, std=None, dt=dtype):
         out = rng.standard_normal(shape)
         bad = np.abs(out) > 3.0
         while bad.any():  # truncate to [-3, 3] by redrawing
             out[bad] = rng.standard_normal(int(bad.sum()))
             bad = np.abs(out) > 3.0
-        return (out / np.sqrt(shape[-2])).astype(dtype)
+        return (out / np.sqrt(shape[-2]) if std is None else out * std).astype(dt)
+
+    def around(value, *shape, spread=0.1, dt=dtype):
+        return (value + spread * rng.standard_normal(shape)).astype(dt)
 
     def scale(*shape):
-        return (1.0 + 0.1 * rng.standard_normal(shape)).astype(dtype)
+        return around(1.0, *shape)
 
     def bias(*shape):
-        return (0.02 * rng.standard_normal(shape)).astype(dtype)
+        return around(0.0, *shape, spread=0.02)
+
+    def mlp(width):
+        return {"wg": dense(reps, d, width), "wi": dense(reps, d, width),
+                "wo": dense(reps, width, d)}
+
+    def attention():
+        attn = {"wq": dense(reps, d, nq), "wk": dense(reps, d, nkv),
+                "wv": dense(reps, d, nkv), "wo": dense(reps, nq, d)}
+        if cfg.qkv_bias:
+            attn.update(bq=bias(reps, nq), bk=bias(reps, nkv), bv=bias(reps, nkv))
+        if cfg.qk_norm:
+            attn.update(q_norm={"scale": scale(reps, hd)}, k_norm={"scale": scale(reps, hd)})
+        return attn
+
+    def mamba():
+        d_in, dt_rank = ssm.mamba_dims(cfg)
+        ds = cfg.ssm_d_state
+        a_log = np.log(np.arange(1, ds + 1, dtype=np.float64))
+        return {"in_proj": dense(reps, d, 2 * d_in),
+                "conv_w": dense(reps, cfg.ssm_d_conv, d_in, std=0.5),
+                "conv_b": bias(reps, d_in),
+                "x_proj": dense(reps, d_in, dt_rank + 2 * ds),
+                "dt_proj": dense(reps, dt_rank, d_in), "dt_bias": bias(reps, d_in),
+                "A_log": around(a_log, reps, d_in, ds, dt=np.float32),
+                "D": around(1.0, reps, d_in, dt=np.float32),
+                "out_proj": dense(reps, d_in, d)}
+
+    def rwkv():
+        nh, rhd = ssm.rwkv_dims(cfg)
+        p = {f"mu_{n}": around(0.5, reps, d, dt=np.float32) for n in "rkvwg"}
+        p.update({n: dense(reps, d, d) for n in ("wr", "wk", "wv", "wg", "wo")})
+        p.update(w0=around(-6.0, reps, d, spread=0.5, dt=np.float32),
+                 wa=dense(reps, d, ssm.RWKV_DECAY_LORA), wb=dense(reps, ssm.RWKV_DECAY_LORA, d),
+                 u=around(0.0, reps, nh, rhd, dt=np.float32),
+                 ln_x={"scale": around(1.0, reps, d, dt=np.float32)})
+        return p
+
+    def moe():
+        e, eff = cfg.n_experts, cfg.expert_d_ff or cfg.d_ff
+        p = {"router": dense(reps, d, e, dt=np.float32), "wg": dense(reps, e, d, eff),
+             "wi": dense(reps, e, d, eff), "wo": dense(reps, e, eff, d)}
+        if cfg.n_shared_experts:
+            p["shared"] = mlp(cfg.n_shared_experts * eff)
+        if cfg.dense_residual:
+            p["dense"] = mlp(dff)
+        return p
+
+    def rwkv_ffn():
+        return {"mu_k": around(0.5, reps, d, dt=np.float32),
+                "mu_r": around(0.5, reps, d, dt=np.float32),
+                "wk": dense(reps, d, dff), "wv": dense(reps, dff, d), "wr": dense(reps, d, d)}
+
+    def block(spec):
+        mixer = {"attn": ("attn", attention), "mamba": ("mixer", mamba),
+                 "rwkv": ("mixer", rwkv)}[spec.mixer]
+        ffn = {"mlp": ("mlp", lambda: mlp(dff)), "moe": ("moe", moe),
+               "rwkv_ffn": ("ffn", rwkv_ffn)}[spec.ffn]
+        out = {mixer[0]: mixer[1]()}
+        out.update(norm1={"scale": scale(reps, d)}, norm2={"scale": scale(reps, d)})
+        out[ffn[0]] = ffn[1]()
+        return out
 
     embed = {"tok": (0.01 * rng.standard_normal((vp, d))).astype(dtype)}
     if not cfg.tie_embeddings:
         embed["head"] = dense(d, vp)
-    attn = {"wq": dense(reps, d, nq), "wk": dense(reps, d, nkv),
-            "wv": dense(reps, d, nkv), "wo": dense(reps, nq, d)}
-    if cfg.qkv_bias:
-        attn.update(bq=bias(reps, nq), bk=bias(reps, nkv), bv=bias(reps, nkv))
-    if cfg.qk_norm:
-        attn.update(q_norm={"scale": scale(reps, hd)}, k_norm={"scale": scale(reps, hd)})
-    block = {"norm1": {"scale": scale(reps, d)}, "attn": attn,
-             "norm2": {"scale": scale(reps, d)},
-             "mlp": {"wg": dense(reps, d, dff), "wi": dense(reps, d, dff),
-                     "wo": dense(reps, dff, d)}}
-    return {"embed": embed, "blocks": [block], "final_norm": {"scale": scale(d)}}
+    blocks = [block(program[i]) for i in range(period)]
+    return {"embed": embed, "blocks": blocks, "final_norm": {"scale": scale(d)}}
 
 
 def _to_tensor(a) -> torch.Tensor:

@@ -7,7 +7,8 @@ Builds the model with seeded weights on ``--device`` (default: the CUDA
 card; without one it prints ``error: ...`` and exits 2), streams the
 deterministic synthetic corpus, and runs supervised (checkpoint/restart,
 straggler-monitored) training.  There is no mesh: the port trains on one
-device.
+device.  A config with experts also reports the last step's MoE aux losses
+(``moe_lb_loss``, ``moe_z_loss``).
 """
 from __future__ import annotations
 
@@ -84,10 +85,18 @@ def main(argv=None) -> int:
                                     seq_len=args.seq))
 
     ckpt = Checkpointer(args.ckpt_dir, keep=2)
+    step = make_train_step(model, tcfg)
+    last: dict = {}
+
+    def train_step(opt_state, batch):
+        opt_state, metrics = step(opt_state, batch)
+        last.update(metrics)
+        return opt_state, metrics
+
     t0 = time.time()
     tokens_per_step = args.batch * args.seq
     _, state, history = run_supervised(
-        train_step=make_train_step(model, tcfg),
+        train_step=train_step,
         params=model,
         opt_state=state,
         data_source=source,
@@ -103,6 +112,9 @@ def main(argv=None) -> int:
     print(f"done: {len(history)} steps in {dt:.1f}s "
           f"({len(history)*tokens_per_step/dt:.0f} tok/s) | "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if cfg.n_experts and "moe_lb_loss" in last:  # accumulated steps report the loss alone
+        print(f"moe aux, last step: moe_lb_loss {float(last['moe_lb_loss']):.4f} "
+              f"moe_z_loss {float(last['moe_z_loss']):.4f}")
     return 0
 
 

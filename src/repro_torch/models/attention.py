@@ -1,5 +1,5 @@
 """Grouped-query attention for training, prefill and decode (port of
-``repro/models/attention.py``, the dense family's parts).
+``repro/models/attention.py``, the parts of its causal self-attention).
 
 Training takes the reference's own math: einsum ``_sdpa`` with the additive
 ``causal_mask``, or the query-chunked ``_blocked_sdpa`` above

@@ -1,4 +1,4 @@
-"""Shared layers of the LM zoo, the parts that the dense family's serving
+"""Shared layers of the LM zoo, the parts that the ported families' serving
 and training use (port of ``repro/models/layers.py``).
 
 Plain functions on tensors.  Compute runs in the config dtype (bf16 on the
@@ -23,14 +23,17 @@ def dtype_of(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
-def dense_init_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """Truncated normal on [-3, 3] times ``1/sqrt(fan_in)``, fan_in =
-    ``shape[-2]``; drawn in f32 on the generator's device, then copied."""
-    std = w.shape[-2] ** -0.5
+def dense_init_(w: torch.Tensor, generator: torch.Generator,
+                std: float | None = None) -> torch.Tensor:
+    """Truncated normal on [-3, 3] times ``std`` (default ``1/sqrt(fan_in)``,
+    fan_in = ``shape[-2]``); drawn in f32 on the generator's device, then
+    copied."""
+    if std is None:
+        std = w.shape[-2] ** -0.5
     t = torch.empty(w.shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(t, a=-3.0, b=3.0, generator=generator)
     with torch.no_grad():
-        return w.copy_(t * std)
+        return w.copy_(t.mul_(std))
 
 
 def embed_init_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -96,6 +99,23 @@ def mlp(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
     h = x @ wi
     act = torch.nn.functional.silu(g.float()).to(x.dtype) * h
     return act @ wo
+
+
+class MLP(nn.Module):
+    """SwiGLU weights ``wg wi`` (d, d_ff) and ``wo`` (d_ff, d)."""
+
+    def __init__(self, d: int, d_ff: int, dtype, device):
+        super().__init__()
+        self.wg = weight(d, d_ff, dtype=dtype, device=device)
+        self.wi = weight(d, d_ff, dtype=dtype, device=device)
+        self.wo = weight(d_ff, d, dtype=dtype, device=device)
+
+    def init(self, generator: torch.Generator) -> None:
+        for w in (self.wg, self.wi, self.wo):
+            dense_init_(w, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp(x, self.wg, self.wi, self.wo)
 
 
 def embed(tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,19 +1,21 @@
 """Model-level API for training and serving (port of
-``repro/models/model.py``, dense family).
+``repro/models/model.py``: the dense, MoE, hybrid and SSM families).
 
 ``Model(cfg, device=None)`` is an ``nn.Module`` that holds its weights,
 named as the reference's parameter pytree (``embed.tok``, ``embed.head``,
-``blocks.<layer>.{norm1,attn,norm2,mlp}.*``, ``final_norm.scale``).  It is
-allocated on ``device`` (``None``: the CUDA card, raising without one) and
-filled by ``init(generator)`` or by ``interop.load_lm_params``.  Batches
+``blocks.<layer>.{norm1,attn|mixer,norm2,mlp|moe|ffn}.*``,
+``final_norm.scale``).  It is allocated on ``device`` (``None``: the CUDA
+card, raising without one) and filled by ``init(generator)`` or by
+``interop.load_lm_params``.  Batches
 are dicts ``{"tokens": (B, S) int, "labels": (B, S) int, ["mask"]}``, as
 in the reference; decode takes ``tokens (B, 1)``, the cache and one
 position for the whole batch.
 
 ``loss`` is differentiable: it attends through ``_sdpa`` under remat, as
-the reference trains.  ``forward``, ``prefill`` and ``decode_step`` run
-under ``torch.no_grad()`` and attend through the kernel, so serving builds
-no autograd graph although the weights are trainable.
+the reference trains, and adds the MoE aux losses of a config with
+experts.  ``forward``, ``prefill`` and ``decode_step`` run under
+``torch.no_grad()`` and attend through the kernel, so serving builds no
+autograd graph although the weights are trainable.
 """
 from __future__ import annotations
 
@@ -33,6 +35,8 @@ from repro_torch.models.layers import (
     weight,
 )
 
+LB_LOSS_WEIGHT = 0.01
+Z_LOSS_WEIGHT = 1e-3
 VOCAB_ALIGN = 256  # the reference pads the vocab for its sharding; kept for parity
 
 
@@ -52,7 +56,7 @@ class Embedding(nn.Module):
 class Model(nn.Module):
     def __init__(self, cfg, device=None):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in tf.PORTED_FAMILIES:
             raise tf.not_ported(f"family {cfg.family!r} ({cfg.arch})", cfg.family)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -111,39 +115,49 @@ class Model(nn.Module):
     def forward(self, batch: dict) -> torch.Tensor:
         """Logits (B, S, vocab_padded) in the compute dtype, through the
         attention kernel."""
-        x = tf.stack_forward(self.blocks, self.cfg, self._embed(batch["tokens"]))
+        x, _ = tf.stack_forward(self.blocks, self.cfg, self._embed(batch["tokens"]))
         return self._logits(x)
 
     # ---- training ----
+
+    def _train_stack(self, batch: dict):
+        x, aux = tf.stack_forward(self.blocks, self.cfg, self._embed(batch["tokens"]),
+                                  block=tf.apply_train_block, remat=self.cfg.remat)
+        return self._logits(x), aux
 
     def train_forward(self, batch: dict) -> torch.Tensor:
         """Logits (B, S, vocab_padded) in the compute dtype through the
         training path: ``_sdpa`` attention, remat as ``cfg.remat`` says.
         Differentiable."""
-        x = tf.stack_forward(self.blocks, self.cfg, self._embed(batch["tokens"]),
-                             block=tf.apply_train_block, remat=self.cfg.remat)
-        return self._logits(x)
+        return self._train_stack(batch)[0]
 
     def loss(self, batch: dict):
-        """Mean next-token cross-entropy.  Returns (loss, {"ce": ce})."""
-        if self.cfg.n_experts:
-            raise tf.not_ported(f"the MoE aux losses of {self.cfg.arch}", "moe")
-        labels = self._tokens(batch["labels"])
+        """Mean next-token cross-entropy, plus ``0.01 * moe_lb_loss + 1e-3 *
+        moe_z_loss`` with experts.  Returns (loss, {"ce", "moe_lb_loss",
+        "moe_z_loss"}); the aux losses are zeros without experts, as in the
+        reference."""
+        logits, aux = self._train_stack(batch)
         mask = batch.get("mask")
-        ce = softmax_xent(self.train_forward(batch), labels,
+        ce = softmax_xent(logits, self._tokens(batch["labels"]),
                           None if mask is None else self._tokens(mask))
-        return ce, {"ce": ce}
+        loss = ce
+        if self.cfg.n_experts:
+            loss = (loss + LB_LOSS_WEIGHT * aux["moe_lb_loss"]
+                    + Z_LOSS_WEIGHT * aux["moe_z_loss"])
+        return loss, {"ce": ce, **aux}
 
     # ---- serving ----
 
     def init_cache(self, batch: int, max_seq: int) -> dict:
+        """One cache per layer: K/V for attention, the f32 recurrent state
+        for mamba and rwkv."""
         return {"blocks": tf.stack_cache_init(self.cfg, self.program, batch, max_seq,
                                               self.dtype, self.device)}
 
     @torch.no_grad()
     def prefill(self, batch: dict, cache: dict):
-        """Run the full prompt, fill the cache; returns (last_logits (B, 1,
-        vocab_padded), cache)."""
+        """Run the full prompt, fill the cache (prompt K/V and final SSM
+        states); returns (last_logits (B, 1, vocab_padded), cache)."""
         x, blocks = tf.stack_prefill(self.blocks, self.cfg, self._embed(batch["tokens"]),
                                      cache["blocks"])
         return self._logits(x[:, -1:, :]), dict(cache, blocks=blocks)

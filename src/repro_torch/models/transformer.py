@@ -1,18 +1,24 @@
-"""Layer program and block stack (port of ``repro/models/transformer.py``,
-the dense family's parts).
+"""Layer program and block stack (port of ``repro/models/transformer.py``).
 
 Every architecture is described by a per-layer (mixer, ffn) program,
-exactly as in the reference.  The port runs the dense program
-``[attn + mlp] * L`` as a plain Python loop over one ``Block`` module per
-layer: PyTorch runs eagerly, so there is no scan and no stacking of
-parameters over repeats (``interop.load_lm_params`` unstacks the
-reference's layout).  Any other mixer or ffn raises ``NotImplementedError``.
+exactly as in the reference.  The port runs it as a plain Python loop over
+one ``Block`` module per layer: PyTorch runs eagerly, so there is no scan
+and no stacking of parameters over repeats (``interop.load_lm_params``
+unstacks the reference's layout).  Mixers ``attn`` (causal self-attention),
+``mamba`` and ``rwkv``, and ffns ``mlp``, ``moe`` and ``rwkv_ffn`` are
+ported: the dense, MoE, hybrid (jamba) and SSM (rwkv) families.  The
+cross-attention mixers of the encoder-decoder and vision-language
+families raise ``NotImplementedError``.
 
 Two blocks run the full sequence: ``apply_block`` attends through the
 kernel (serving's ``Model.forward``), ``apply_train_block`` through
-``_sdpa`` (``Model.loss``).  ``stack_forward`` runs either, and with
-``remat`` recomputes each period's activations in the backward pass
-(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
+``_sdpa`` (``Model.loss``); both return the layer's MoE aux losses.
+``stack_forward`` runs either, sums the aux losses over the MoE layers and
+averages them, and with ``remat`` recomputes each period's activations in
+the backward pass (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint`` does.  Prefill merges each layer's K/V or final
+recurrent state into its cache; decode carries them, and routes MoE layers
+at serving's larger capacity factor.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import functools
 import torch
 from torch import nn
 
+from repro_torch.models import ssm
 from repro_torch.models.attention import (
     Attention,
     KVCacheSpec,
@@ -33,27 +40,27 @@ from repro_torch.models.attention import (
     sequence_positions,
     train_self_attention,
 )
-from repro_torch.models.layers import RMSNorm, dense_init_, mlp, weight
+from repro_torch.models.layers import MLP, RMSNorm
+from repro_torch.models.moe import MoE, moe
 
-# the slice of the LM scaffolding's port that brings each other family
-LATER_SLICE = {"moe": "MoE", "hybrid": "hybrid/SSM", "ssm": "hybrid/SSM",
-               "encdec": "encoder-decoder", "vlm": "vision-language"}
+# the families the port runs, and the slice of the LM scaffolding's port
+# that brings each other one
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+PORTED_MIXERS = ("attn", "mamba", "rwkv")
+LATER_SLICE = {"encdec": "encoder-decoder", "vlm": "vision-language"}
 
 
 def not_ported(what: str, family: str) -> NotImplementedError:
     slice_ = LATER_SLICE.get(family, "a later")
     return NotImplementedError(
         f"{what} is not ported yet: it comes with the {slice_} slice of the LM "
-        f"scaffolding; the port serves the dense family ([attn + mlp] layers)")
+        f"scaffolding; the port serves the {', '.join(PORTED_FAMILIES)} families")
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     mixer: str  # attn | attn_nc | mamba | rwkv | cross | self_cross
     ffn: str  # mlp | moe | rwkv_ffn
-
-
-DENSE = LayerSpec("attn", "mlp")
 
 
 def layer_program(cfg) -> list[LayerSpec]:
@@ -89,42 +96,39 @@ def find_period(program: list[LayerSpec]) -> tuple[int, int]:
     return n, 1
 
 
-def _require_dense(cfg, spec: LayerSpec) -> None:
-    if spec != DENSE:
+def _require_ported(cfg, spec: LayerSpec) -> None:
+    if spec.mixer not in PORTED_MIXERS:
         raise not_ported(f"layer {spec} of {cfg.arch}", cfg.family)
 
 
-class MLP(nn.Module):
-    """SwiGLU weights ``wg wi`` (d, d_ff) and ``wo`` (d_ff, d)."""
-
-    def __init__(self, d: int, d_ff: int, dtype, device):
-        super().__init__()
-        self.wg = weight(d, d_ff, dtype=dtype, device=device)
-        self.wi = weight(d, d_ff, dtype=dtype, device=device)
-        self.wo = weight(d_ff, d, dtype=dtype, device=device)
-
-    def init(self, generator: torch.Generator) -> None:
-        for w in (self.wg, self.wi, self.wo):
-            dense_init_(w, generator)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return mlp(x, self.wg, self.wi, self.wo)
-
-
 class Block(nn.Module):
-    """One ``("attn", "mlp")`` layer: ``norm1 attn norm2 mlp``."""
+    """One layer, ``norm1 <mixer> norm2 <ffn>``, named as the reference's
+    block: the mixer is ``attn`` (attention) or ``mixer`` (mamba, rwkv),
+    the ffn ``mlp``, ``moe`` or ``ffn`` (rwkv's channel mix)."""
 
     def __init__(self, cfg, spec: LayerSpec, dtype, device):
         super().__init__()
-        _require_dense(cfg, spec)
+        _require_ported(cfg, spec)
+        self.spec = spec
         self.norm1 = RMSNorm(cfg.d_model, dtype, device)
-        self.attn = Attention(cfg, dtype, device)
+        if spec.mixer == "attn":
+            self.attn = Attention(cfg, dtype, device)
+        elif spec.mixer == "mamba":
+            self.mixer = ssm.Mamba(cfg, dtype, device)
+        else:
+            self.mixer = ssm.RWKVTimeMix(cfg, dtype, device)
         self.norm2 = RMSNorm(cfg.d_model, dtype, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
+        if spec.ffn == "mlp":
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
+        elif spec.ffn == "moe":
+            self.moe = MoE(cfg, dtype, device)
+        else:
+            self.ffn = ssm.RWKVChannelMix(cfg, dtype, device)
 
     def init(self, generator: torch.Generator) -> None:
-        self.attn.init(generator)
-        self.mlp.init(generator)
+        for child in self.children():
+            if not isinstance(child, RMSNorm):
+                child.init(generator)
 
 
 # ---------------------------------------------------------------------------
@@ -132,17 +136,35 @@ class Block(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def apply_block(p: Block, cfg, x: torch.Tensor) -> torch.Tensor:
-    """One block over the full sequence, attending through the kernel."""
-    x = x + self_attention(p.attn, cfg, p.norm1(x), causal=True)
-    return x + p.mlp(p.norm2(x))
+def _mixer(p: Block, cfg, h: torch.Tensor, attention) -> torch.Tensor:
+    if p.spec.mixer == "attn":
+        return attention(p.attn, cfg, h, causal=True)
+    if p.spec.mixer == "mamba":
+        return ssm.mamba(p.mixer, cfg, h)
+    return ssm.rwkv_time_mix(p.mixer, cfg, h)
 
 
-def apply_train_block(p: Block, cfg, x: torch.Tensor) -> torch.Tensor:
+def _ffn(p: Block, cfg, h2: torch.Tensor, capacity_factor: float | None = None):
+    """The layer's ffn on h2; returns (out, MoE aux losses or None)."""
+    if p.spec.ffn == "mlp":
+        return p.mlp(h2), None
+    if p.spec.ffn == "moe":
+        return moe(p.moe, cfg, h2, capacity_factor)
+    return ssm.rwkv_channel_mix(p.ffn, cfg, h2), None
+
+
+def apply_block(p: Block, cfg, x: torch.Tensor, attention=self_attention):
+    """One block over the full sequence, attending through the kernel.
+    Returns (x, MoE aux losses or None)."""
+    x = x + _mixer(p, cfg, p.norm1(x), attention)
+    out, aux = _ffn(p, cfg, p.norm2(x))
+    return x + out, aux
+
+
+def apply_train_block(p: Block, cfg, x: torch.Tensor):
     """One block over the full sequence, differentiable: the reference's
     ``apply_block``, attending through ``_sdpa``."""
-    x = x + train_self_attention(p.attn, cfg, p.norm1(x), causal=True)
-    return x + p.mlp(p.norm2(x))
+    return apply_block(p, cfg, x, attention=train_self_attention)
 
 
 # matmuls without batch dims: what jax's dots_with_no_batch_dims_saveable
@@ -157,59 +179,92 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def stack_forward(blocks, cfg, x: torch.Tensor, block=apply_block,
-                  remat: bool = False) -> torch.Tensor:
-    """Run ``block`` through the stack.  With ``remat``, each period of the
-    layer program runs under ``torch.utils.checkpoint``, keeping only its
-    input for the backward pass (``cfg.remat_policy`` "full"), or also its
-    weight matmuls' outputs ("dots")."""
+def stack_forward(blocks, cfg, x: torch.Tensor, block=apply_block, remat: bool = False):
+    """Run ``block`` through the stack.  Returns (x, aux): the MoE aux
+    losses summed over the layers and divided by the number of MoE layers
+    (zeros without one), as the reference averages them.  With ``remat``,
+    each period of the layer program runs under ``torch.utils.checkpoint``,
+    keeping only its input for the backward pass (``cfg.remat_policy``
+    "full"), or also its weight matmuls' outputs ("dots")."""
 
     def run(x, group):
+        lb = z = x.new_zeros((), dtype=torch.float32)
         for p in group:
-            x = block(p, cfg, x)
-        return x
+            x, aux = block(p, cfg, x)
+            if aux is not None:
+                lb, z = lb + aux["moe_lb_loss"], z + aux["moe_z_loss"]
+        return x, lb, z
 
     if not remat:
-        return run(x, blocks)
-    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+        x, lb, z = run(x, blocks)
+    else:
+        from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-    kw = {}
-    if cfg.remat_policy == "dots":
-        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
-                                             _save_dots)
-    period, _ = find_period(layer_program(cfg))
-    for i in range(0, len(blocks), period):
-        x = checkpoint(run, x, blocks[i:i + period], use_reentrant=False, **kw)
-    return x
-
-
-def apply_block_prefill(p: Block, cfg, x: torch.Tensor):
-    """One block over the full prompt; returns (x, {"k", "v"} (B, S, nkv, hd)).
-    The reference projects q/k/v twice here (once for the cache, once inside
-    its block); the port projects once, with the same numbers."""
-    h = p.norm1(x)
-    q, k, v = _project_qkv(p.attn, cfg, h, sequence_positions(h))
-    x = x + attend(p.attn, q, k, v, causal=True)
-    x = x + p.mlp(p.norm2(x))
-    return x, {"k": k, "v": v}
+        kw = {}
+        if cfg.remat_policy == "dots":
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _save_dots)
+        period, _ = find_period(layer_program(cfg))
+        lb = z = x.new_zeros((), dtype=torch.float32)
+        for i in range(0, len(blocks), period):
+            x, lb_i, z_i = checkpoint(run, x, blocks[i:i + period], use_reentrant=False, **kw)
+            lb, z = lb + lb_i, z + z_i
+    n_moe = max(1, sum(1 for p in blocks if p.spec.ffn == "moe"))
+    return x, {"moe_lb_loss": lb / n_moe, "moe_z_loss": z / n_moe}
 
 
 def stack_prefill(blocks, cfg, x: torch.Tensor, caches: list):
-    """Prefill through the stack; writes each layer's prompt K/V into its
-    cache (in place).  Returns (x, caches)."""
+    """Prefill through the stack.  Writes each attention layer's prompt K/V
+    into its cache in place, and puts each SSM layer's final state into its
+    cache dict.  Returns (x, caches).  The reference projects q/k/v twice
+    here (once for the cache, once inside its block); the port projects
+    once, with the same numbers."""
     for p, c in zip(blocks, caches):
-        x, contrib = apply_block_prefill(p, cfg, x)
-        s = contrib["k"].shape[1]
-        c["k"][:, :s] = contrib["k"].to(c["k"].dtype)
-        c["v"][:, :s] = contrib["v"].to(c["v"].dtype)
+        h = p.norm1(x)
+        if p.spec.mixer == "attn":
+            q, k, v = _project_qkv(p.attn, cfg, h, sequence_positions(h))
+            x = x + attend(p.attn, q, k, v, causal=True)
+            s = k.shape[1]
+            c["k"][:, :s] = k.to(c["k"].dtype)
+            c["v"][:, :s] = v.to(c["v"].dtype)
+        elif p.spec.mixer == "mamba":
+            out, state = ssm.mamba(p.mixer, cfg, h, return_state=True)
+            x = x + out
+            c.update(state)
+        else:
+            out, state = ssm.rwkv_time_mix(p.mixer, cfg, h, return_state=True)
+            x = x + out
+            c.update(s=state["s"], x_prev_att=state["x_prev"])
+        h2 = p.norm2(x)
+        out, _ = _ffn(p, cfg, h2)
+        if p.spec.ffn == "rwkv_ffn":
+            c["x_prev_ffn"] = h2[:, -1, :].float()
+        x = x + out
     return x, caches
 
 
 def apply_block_decode(p: Block, cfg, x: torch.Tensor, cache: dict, pos: int):
-    """One block, one token.  Returns (x, cache)."""
-    out, cache = decode_attention(p.attn, cfg, p.norm1(x), cache, pos)
+    """One block, one token.  Returns (x, cache); a MoE layer routes at
+    ``max(cfg.moe_capacity_factor, 2.0)`` (a dropped token is a quality
+    bug in serving)."""
+    h = p.norm1(x)
+    if p.spec.mixer == "attn":
+        out, cache = decode_attention(p.attn, cfg, h, cache, pos)
+    elif p.spec.mixer == "mamba":
+        out, state = ssm.mamba_decode(p.mixer, cfg, h, cache)
+        cache.update(state)
+    else:
+        out, state = ssm.rwkv_time_mix_decode(
+            p.mixer, cfg, h, {"s": cache["s"], "x_prev": cache["x_prev_att"]})
+        cache.update(s=state["s"], x_prev_att=state["x_prev"])
     x = x + out
-    return x + p.mlp(p.norm2(x)), cache
+    h2 = p.norm2(x)
+    if p.spec.ffn == "rwkv_ffn":
+        out = ssm.rwkv_channel_mix(p.ffn, cfg, h2, cache["x_prev_ffn"])
+        cache["x_prev_ffn"] = h2[:, 0, :].float()
+    else:
+        out, _ = _ffn(p, cfg, h2, capacity_factor=max(cfg.moe_capacity_factor, 2.0))
+    return x + out, cache
 
 
 def stack_decode(blocks, cfg, x: torch.Tensor, caches: list, pos: int):
@@ -221,7 +276,14 @@ def stack_decode(blocks, cfg, x: torch.Tensor, caches: list, pos: int):
 
 def block_cache_init(cfg, spec: LayerSpec, batch: int, max_seq: int, dtype,
                      device=None) -> dict:
-    _require_dense(cfg, spec)
+    """A layer's serving cache: K/V (B, max_seq, nkv, hd) of attention, or
+    the f32 recurrent state of mamba ({"h", "conv"}) and rwkv ({"s",
+    "x_prev_att", "x_prev_ffn"})."""
+    _require_ported(cfg, spec)
+    if spec.mixer == "mamba":
+        return ssm.mamba_state_init(cfg, batch, device)
+    if spec.mixer == "rwkv":
+        return ssm.rwkv_state_init(cfg, batch, device)
     return kv_cache_init(KVCacheSpec(batch, max_seq, cfg.n_kv_heads, cfg.head_dim, dtype),
                          device)
 

@@ -8,7 +8,9 @@ one token per step for the whole wave.
 
 The port's model holds its weights, so the engine takes the model alone,
 and runs eagerly (the reference's ``jit`` flag has no counterpart).  It
-runs on the model's device.
+runs on the model's device, for every family ``Model`` runs: the cache
+holds each attention layer's K/V and each mamba or rwkv layer's recurrent
+state, which prefill fills and decode carries.
 """
 from __future__ import annotations
 

@@ -211,7 +211,8 @@ def test_port_imports_nothing_of_jax_or_the_reference():
                    port / "interop.py", port / "serve" / "legacy" / "engine.py",
                    port / "serve" / "legacy" / "serve_step.py"]
     must_cover += [port / "models" / f"{m}.py"
-                   for m in ("__init__", "layers", "attention", "transformer", "model")]
+                   for m in ("__init__", "layers", "attention", "transformer", "model",
+                             "moe", "ssm")]
     # the sweep runner, its fault plans and the whole-trace DRAM timing ops
     must_cover += [port / "sweep" / f"{m}.py"
                    for m in ("__init__", "__main__", "spec", "cache", "runner", "results")]

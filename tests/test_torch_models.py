@@ -1,4 +1,5 @@
-"""The port's LM configs, layers and dense model against the JAX package.
+"""The port's LM configs, layers and dense model against the JAX package
+(the MoE, hybrid and SSM families: ``tests/test_torch_families.py``).
 
 Configs are plain data and must equal the reference field for field.
 Layers and the model are compared in f32 on the same numpy inputs: the
@@ -23,13 +24,14 @@ from repro.models import Model as RefModel
 from repro.models import layers as ref_layers
 from repro.models import transformer as ref_transformer
 from repro_torch.configs import base
-from repro_torch.interop import lm_params_numpy, load_lm_params
+from repro_torch.interop import lm_params_numpy, load_lm_params, tree_leaves
 from repro_torch.models import Model, padded_vocab
 from repro_torch.models import layers
 from repro_torch.models.transformer import LATER_SLICE, find_period, layer_program
 
 DENSE = ["minitron_8b", "qwen2_7b", "qwen2_5_3b", "qwen3_0_6b"]
-OTHER = [a for a in ref_base.ARCH_IDS if a not in DENSE]
+FAMILIES = ["qwen2_moe_a2_7b", "arctic_480b", "jamba_v0_1_52b", "rwkv6_1_6b"]
+OTHER = [a for a in ref_base.ARCH_IDS if a not in DENSE + FAMILIES]
 TOL = 1e-4  # f32 model logits: matmul sums run in another order than XLA's
 
 
@@ -185,14 +187,20 @@ TREE_CASES = [(a, "reduced") for a in DENSE] + [
     ("qwen3_0_6b", dict(n_layers=2, vocab=1024)),  # bf16
     ("qwen2_7b", dict(n_layers=2, vocab=1024, d_model=256, d_ff=512, d_head=64,
                       dtype="float32")),
-]
+] + [(a, "reduced") for a in FAMILIES] + [
+    (a, "reduced_bf16") for a in FAMILIES  # f32 leaves (router, SSM) in a bf16 tree
+] + [("rwkv6_1_6b", dict(n_layers=2, vocab=1024, dtype="float32"))]  # the serve golden's
 
 
 @pytest.mark.parametrize("arch,cut", TREE_CASES, ids=lambda c: str(c).replace(" ", ""))
 def test_lm_params_numpy_matches_init_abstract(arch, cut):
     def make(mod):
         cfg = mod.get_arch(arch)
-        return cfg.reduced() if cut == "reduced" else dataclasses.replace(cfg, **cut)
+        if cut == "reduced":
+            return cfg.reduced()
+        if cut == "reduced_bf16":
+            return dataclasses.replace(cfg.reduced(), dtype="bfloat16")
+        return dataclasses.replace(cfg, **cut)
 
     ref_cfg, cfg = make(ref_base), make(base)
     abstract = RefModel(ref_cfg).init_abstract()
@@ -201,12 +209,15 @@ def test_lm_params_numpy_matches_init_abstract(arch, cut):
     for got, want in zip(jax.tree.leaves(tree), jax.tree.leaves(abstract)):
         assert got.shape == want.shape and got.dtype == want.dtype
     model = load_lm_params(Model(cfg, device="cpu"), tree)
+    # blocks stacked per position of the layer program's period
     period, reps = find_period(layer_program(cfg))
-    assert (period, reps) == (1, cfg.n_layers)
-    last = model.blocks[reps - 1].attn.wk
-    np.testing.assert_array_equal(last.detach().float().numpy(),
-                                  np.asarray(tree["blocks"][0]["attn"]["wk"][reps - 1],
-                                             np.float32))
+    assert (period, reps) == ref_transformer.find_period(ref_transformer.layer_program(ref_cfg))
+    assert len(tree["blocks"]) == period and period * reps == cfg.n_layers
+    li = cfg.n_layers - 1  # the last layer is position li % period, repeat li // period
+    stacked = dict(tree_leaves(tree["blocks"][li % period]))
+    for name, p in model.blocks[li].named_parameters():
+        np.testing.assert_array_equal(p.detach().float().numpy(),
+                                      np.asarray(stacked[name][li // period], np.float32), name)
     np.testing.assert_array_equal(lm_params_numpy(cfg, 0)["embed"]["tok"], tree["embed"]["tok"])
 
 

@@ -6,19 +6,28 @@ on the CPU must give the reference ``ServeEngine``'s tokens on the
 ``tests/test_serving.py`` scenarios.
 
 ``tests/data/torch_golden_serve.json`` records what the reference serves
-for two f32 configurations, with weights from
+for f32 configurations, with weights from
 ``interop.lm_params_numpy(cfg, seed)``: ``qwen3_0_6b.reduced()`` and
 ``qwen3_0_6b`` at its full widths cut to 2 layers and a 1,024-token vocab
-(head_dim 128, GQA 16/8).  Two seeded 160-token prompts (S crosses a
-128-row block with a ragged tail) are decoded greedily for 8 tokens; the
-file keeps the tokens, the logits of every step and each step's top-2
-margin.  The card's machine has no JAX, so ``chip_smoke.py`` holds the port
-on the card against this file; here the port on the CPU is.  The logits
-must agree within ``tolerance`` at every step (teacher-forced), and the
-greedy tokens must agree up to the first step whose top-2 margin is within
-10 x ``tolerance`` (a near-tie may flip).
+(head_dim 128, GQA 16/8); the ``reduced()`` configs of the MoE, hybrid and
+SSM architectures; ``rwkv6_1_6b`` at full width cut to 2 layers; and
+``qwen2_moe_a2_7b`` at full width cut to 1 layer (60 experts, ~0.57 B
+parameters, 2.3 GB in f32), each with a 1,024-token vocab.  Two seeded
+160-token prompts (S crosses a 128-row block with a ragged tail) are
+decoded greedily for 8 tokens; the file keeps the tokens, the logits of
+every step and each step's top-2 margin, and for a MoE configuration the
+smallest gap between the k-th and (k+1)-th router probability over every
+routing of those steps (a gap within float noise could flip an expert).
+The card's machine has no JAX, so ``chip_smoke.py`` holds the port on the
+card against this file; here the port on the CPU is, but for the
+full-width MoE cut (``ON_CARD``: too large for the CPU suite), which the
+card alone serves.  The logits must agree within ``tolerance`` at every
+step (teacher-forced), and the greedy tokens must agree up to the first
+step whose top-2 margin is within 10 x ``tolerance`` (a near-tie may
+flip).
 
-Regenerate the file (a few seconds on a CPU):
+Regenerate the file (about a minute on a CPU, most of it the full-width
+MoE cut):
 
     PYTHONPATH=src python tests/test_torch_serve.py --write
 """
@@ -30,6 +39,7 @@ import json
 import os
 import sys
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -59,12 +69,23 @@ NEAR_TIE = 10 * TOLERANCE
 PROMPT_LEN, N_PROMPTS, MAX_NEW = 160, 2, 8
 
 
+FAMILIES = ["qwen2_moe_a2_7b", "arctic_480b", "jamba_v0_1_52b", "rwkv6_1_6b"]
+ON_CARD = "qwen2_moe_a2_7b.full_width.1_layer"  # held by chip_smoke.py alone
+
+
 def golden_configs() -> list[tuple[str, ArchConfig, int]]:
     """(name, f32 config, weight seed) of each golden."""
     full = get_arch("qwen3_0_6b")
-    return [("qwen3_0_6b.reduced", full.reduced(), 0),
-            ("qwen3_0_6b.full_width.2_layers", dataclasses.replace(
-                full, n_layers=2, vocab=1024, dtype="float32"), 1)]
+    out = [("qwen3_0_6b.reduced", full.reduced(), 0),
+           ("qwen3_0_6b.full_width.2_layers", dataclasses.replace(
+               full, n_layers=2, vocab=1024, dtype="float32"), 1)]
+    out += [(f"{arch}.reduced", get_arch(arch).reduced(), 2 + i)
+            for i, arch in enumerate(FAMILIES)]
+    out += [("rwkv6_1_6b.full_width.2_layers", dataclasses.replace(
+                get_arch("rwkv6_1_6b"), n_layers=2, vocab=1024, dtype="float32"), 6),
+            (ON_CARD, dataclasses.replace(
+                get_arch("qwen2_moe_a2_7b"), n_layers=1, vocab=1024, dtype="float32"), 7)]
+    return out
 
 
 def _prompts(cfg, seed: int) -> np.ndarray:
@@ -78,6 +99,28 @@ def _b64(a: np.ndarray) -> str:
 
 def _unb64(s: str, shape) -> np.ndarray:
     return np.frombuffer(base64.b64decode(s), np.float32).reshape(shape)
+
+
+def min_router_gap(model, params, prompts, tokens) -> float:
+    """The smallest gap between the k-th and (k+1)-th router probability
+    over every routing the reference makes in the golden's steps (prefill,
+    then the decode steps teacher-forced on ``tokens``), un-jitted, with
+    ``jax.lax.top_k`` recording each routing's probabilities."""
+    gaps = []
+    top_k = jax.lax.top_k
+
+    def recording(probs, k):
+        top = np.sort(np.asarray(probs), axis=-1)[..., -k - 1:]
+        gaps.append(float((top[..., 1] - top[..., 0]).min()))
+        return top_k(probs, k)
+
+    with mock.patch.object(jax.lax, "top_k", recording):
+        cache = model.init_cache(len(prompts), PROMPT_LEN + MAX_NEW)
+        _, cache = model.prefill(params, {"tokens": jnp.asarray(prompts)}, cache)
+        for step in range(MAX_NEW - 1):
+            _, cache = model.decode_step(params, jnp.asarray(tokens[:, step:step + 1]),
+                                         cache, jnp.int32(PROMPT_LEN + step))
+    return min(gaps)
 
 
 def write_golden() -> None:
@@ -108,12 +151,16 @@ def write_golden() -> None:
             assert r.out.tolist() == tokens[r.rid].tolist(), "engine != stepwise greedy"
         logits = np.stack(steps, 1)  # (N_PROMPTS, MAX_NEW, vocab)
         top2 = np.sort(logits, axis=-1)[..., -2:]
-        records.append(dict(
+        record = dict(
             name=name, config=dataclasses.asdict(cfg), weight_seed=seed,
             prompts=prompts.tolist(), max_new=MAX_NEW, tokens=tokens.tolist(),
             margins=(top2[..., 1] - top2[..., 0]).tolist(),
-            logits_shape=list(logits.shape), logits_f32_b64=_b64(logits)))
-        print(name, tokens.tolist(), flush=True)
+            logits_shape=list(logits.shape), logits_f32_b64=_b64(logits))
+        if cfg.n_experts:
+            record["router_min_gap"] = min_router_gap(model, params, prompts, tokens)
+        records.append(record)
+        print(name, tokens.tolist(), record.get("router_min_gap", ""), flush=True)
+        del params, model
     GOLDEN_PATH.parent.mkdir(parents=True, exist_ok=True)
     GOLDEN_PATH.write_text(json.dumps(dict(tolerance=TOLERANCE, near_tie=NEAR_TIE,
                                            configs=records), indent=1) + "\n")
@@ -131,9 +178,17 @@ def test_golden_file_covers_the_configurations():
         assert g["config"] == dataclasses.asdict(cfg) and g["weight_seed"] == seed
         assert g["prompts"] == _prompts(cfg, seed).tolist()
         assert g["logits_shape"] == [N_PROMPTS, MAX_NEW, cfg.vocab]
+        assert ("router_min_gap" in g) == bool(cfg.n_experts)
+        assert g.get("router_min_gap", 1.0) > 0  # no exact tie among the k-th choices
+    # the card's full-width MoE cut: the published config but for depth,
+    # vocab and dtype
+    published = dataclasses.asdict(get_arch("qwen2_moe_a2_7b"))
+    cut = golden[ON_CARD]["config"]
+    assert {k for k in cut if cut[k] != published[k]} == {"n_layers", "vocab", "dtype"}
+    assert (cut["n_layers"], cut["vocab"], cut["dtype"]) == (1, 1024, "float32")
 
 
-@pytest.mark.parametrize("name", [name for name, _, _ in golden_configs()])
+@pytest.mark.parametrize("name", [name for name, _, _ in golden_configs() if name != ON_CARD])
 def test_port_matches_serve_golden(name):
     g = _golden()[name]
     cfg = ArchConfig(**g["config"])

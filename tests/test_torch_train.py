@@ -22,7 +22,8 @@ On ``qwen3_0_6b.reduced()`` in f32 with weights from
 - a supervised run with failures injected at steps 7 and 13 ends bit-equal
   to an uninterrupted one;
 - ``python -m repro_torch.launch.train --device cpu --reduced`` trains with
-  a falling loss, and without ``--device`` and a card exits 2.
+  a falling loss (and a MoE config reports its aux losses), and without
+  ``--device`` and a card exits 2.
 
 ``tests/data/torch_golden_train.json`` records what the reference trains
 for two f32 cuts of qwen3 (``reduced()``, and full width cut to 2 layers and
@@ -335,8 +336,9 @@ def test_train_steps_match_reference(micro_steps, n_steps):
         keep = jax.tree.map(lambda m, g: m & (np.abs(np.asarray(g)) > GRAD_FLOOR), keep, g)
         params, rstate, want = rstep(params, rstate, jax.tree.map(jnp.asarray, batch))
         state, got = step(state, batch)
-        moe = {"moe_lb_loss", "moe_z_loss"} & set(want)  # dense: the reference's zeros
-        assert set(got) == set(want) - moe and all(float(want[k]) == 0 for k in moe)
+        assert set(got) == set(want)
+        for key in ("moe_lb_loss", "moe_z_loss"):  # dense: zeros in both
+            assert key not in got or float(got[key]) == float(want[key]) == 0
         for key in got:
             np.testing.assert_allclose(float(got[key]), float(want[key]), rtol=STEP_TOL,
                                        err_msg=f"step {i}: {key}")
@@ -462,9 +464,22 @@ def test_launcher_without_a_card_exits_2(tmp_path, capsys, monkeypatch):
     assert launch_train.main(["--reduced", "--steps", "1",
                               "--ckpt-dir", str(tmp_path)]) == 2
     assert capsys.readouterr().err.startswith("error: ")
-    assert launch_train.main(["--arch", "qwen2_moe_a2_7b", "--reduced", "--device", "cpu",
+    assert launch_train.main(["--arch", "whisper_small", "--reduced", "--device", "cpu",
                               "--ckpt-dir", str(tmp_path)]) == 2
     assert "not ported yet" in capsys.readouterr().err
+
+
+def test_launcher_trains_a_moe_config_on_the_cpu(tmp_path, capsys):
+    rc = launch_train.main(["--arch", "qwen2_moe_a2_7b", "--reduced", "--device", "cpu",
+                            "--steps", "4", "--batch", "2", "--seq", "32",
+                            "--ckpt-dir", str(tmp_path / "ckpt")])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "arch=qwen2_moe_a2_7b" in out and "done: 4 steps" in out
+    aux = [line for line in out.splitlines() if line.startswith("moe aux, last step:")]
+    assert aux, out
+    lb, z = (float(aux[0].split(key)[1].split()[0]) for key in ("moe_lb_loss", "moe_z_loss"))
+    assert 0.5 < lb < 8 and 0 < z, aux[0]  # E * sum(frac_tokens * frac_probs) ~ k
 
 
 if __name__ == "__main__":

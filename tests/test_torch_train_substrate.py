@@ -169,23 +169,29 @@ def test_clipping_scales_the_update():
             w.zero_()
 
 
-@pytest.mark.parametrize("arch", ["qwen3_0_6b", "qwen2_7b", "minitron_8b"])
+@pytest.mark.parametrize("arch", ["qwen3_0_6b", "qwen2_7b", "minitron_8b", "qwen2_moe_a2_7b",
+                                  "arctic_480b", "jamba_v0_1_52b", "rwkv6_1_6b"])
 def test_decay_mask_agrees_on_every_name(arch):
     """The port's mask on its dotted names equals the reference's on the
-    same leaves' paths (qkv biases, qk norms, untied heads)."""
+    same leaves' paths (qkv biases, qk norms, untied heads, the router,
+    the SSM decays and mixes)."""
     cfg = get_arch(arch).reduced()
     model = Model(cfg, device="cpu")
     tree = lm_params_numpy(cfg, 0)
+    period = len(tree["blocks"])
     want = {}
     for path, _ in jax.tree_util.tree_flatten_with_path(tree)[0]:
         key = ".".join(str(getattr(p, "key", getattr(p, "idx", None))) for p in path)
         want[key] = ref_opt._decay_mask(path)
     for name, _ in model.named_parameters():
         parts = name.split(".")
-        key = ".".join(["blocks", "0"] + parts[2:]) if parts[0] == "blocks" else name
+        if parts[0] == "blocks":  # layer li is period position li % period
+            parts[1] = str(int(parts[1]) % period)
+        key = ".".join(parts)
         assert opt._decay_mask(name) == want[key], name
     decayed = {n.rsplit(".", 1)[-1] for n, _ in model.named_parameters() if opt._decay_mask(n)}
-    assert "tok" in decayed and "wq" in decayed and not decayed & {"scale", "bq", "bk", "bv"}
+    assert "tok" in decayed and not decayed & {"scale", "bq", "bk", "bv"}
+    assert "wq" in decayed or cfg.family == "ssm"  # rwkv has no attention
 
 
 # ---------------- data --------------------------------------------------------
