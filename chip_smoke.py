@@ -37,8 +37,10 @@ Phases, one JSON line each on stdout:
               reference's tolerances (2e-5 in f32, 2e-2 in bf16; TF32 is
               off for every matmul): the shape set of
               ``tests/test_kernels.py``, qwen3's heads (16/8, hd 128) at
-              S 1,024 and on a ragged S, and a non-causal case, in f32 and
-              bf16.
+              S 1,024 and on a ragged S, and non-causal cases at S 256 and
+              at S that is not a multiple of the 128-row block (whisper's
+              encoder, (4, 1,500, 12/12, hd 64), and (1, 160, 4/2, hd
+              64)), in f32 and bf16.
 4. main    -- the main path at full size: 18 scenarios on the paper graph
               ``lj`` and the 8 tiny golden scenarios through
               ``run_accelerator(..., device=None)``, i.e. on the card.  Every trace hash, TimingReport field, iteration count and
@@ -138,8 +140,14 @@ Phases, one JSON line each on stdout:
               reference): ``qwen3_0_6b.reduced()`` and qwen3 at full width
               cut to 2 layers, the ``reduced()`` qwen2-moe, arctic, jamba
               and rwkv6, rwkv6 at full width cut to 2 layers and qwen2-moe
-              at full width cut to 1 layer (60 experts; the CPU tests skip
-              this one), weights from ``interop.lm_params_numpy``.
+              at full width cut to 1 layer (60 experts), the ``reduced()``
+              whisper and llama-vision, whisper at full width cut to 2
+              decoder and 2 encoder layers over 1,500 frames and
+              llama-vision at full width cut to one period of 5 layers
+              (17.2 GB; the CPU tests skip this and the qwen2-moe cut),
+              weights from ``interop.lm_params_numpy``, the stub front
+              ends' inputs from ``interop.context_inputs_numpy`` with the
+              file's ``stub_seed``.
               Teacher-forced logits of every step within the file's
               tolerance; ``ServeEngine``'s greedy tokens equal up to each
               request's first near-tie (counted and printed, with each MoE
@@ -156,22 +164,30 @@ Phases, one JSON line each on stdout:
               its plain version on the real q/k/v of layer 0 of wave 1.
               Printed: wall per wave, prefill and decode tokens per second,
               and the share of prefill time inside the attention kernel.
-12. serve_families -- the MoE, hybrid and SSM families at their published
-              widths in bf16 through ``ServeEngine(batch=4)``, weights from
-              ``Model.init`` with a seeded generator on the card, one model
-              at a time: ``qwen2_moe_a2_7b`` (24 layers, 1,024-token
-              prompts), ``rwkv6_1_6b`` (24 layers, 256), ``jamba_v0_1_52b``
-              cut to one period of 8 layers (256) and ``arctic_480b`` cut to
-              1 layer (1,024), 8 requests of 32 new tokens each (two waves).
+12. serve_families -- the MoE, hybrid, SSM, encoder-decoder and
+              vision-language families at their published widths in bf16
+              through ``ServeEngine(batch=4)``, weights from ``Model.init``
+              with a seeded generator on the card, one model at a time:
+              ``qwen2_moe_a2_7b`` (24 layers, 1,024-token prompts),
+              ``rwkv6_1_6b`` (24 layers, 256), ``jamba_v0_1_52b`` cut to one
+              period of 8 layers (256), ``arctic_480b`` cut to 1 layer
+              (1,024), ``whisper_small`` at its published config (12 + 12
+              layers, 224; ``enc_frames`` of 1,500 frames) and
+              ``llama3_2_vision_90b`` cut to 10 layers (1,024; ``img_embeds``
+              of 1,601 patches), 8 requests of 32 new tokens each (two
+              waves), the stub inputs seeded (``run(requests, extras)``).
               Checks: every request answered with tokens in the vocab, every
-              logit finite, the attention kernel launched once an attention
-              layer a wave (none for rwkv6), the kernel against its plain
-              version on qwen2-moe's real layer-0 q/k/v, and rwkv6's
-              recurrence: prefill of the prompt and one token equals
-              prefill then decode of that token, in bf16 within
+              logit finite, the attention kernel launched once a
+              self-attention layer (and once an encoder layer) a wave (none
+              for rwkv6), the kernel against its plain version on the real
+              layer-0 q/k/v of qwen2-moe, whisper's encoder (non-causal, S
+              1,500) and llama-vision, and the recurrence or cache: prefill
+              of the prompt and one token equals prefill then decode of that
+              token, for rwkv6 in bf16 within
               ``FAMILY_INVARIANT_FLOOR_FACTOR`` times bf16's own noise
               floor (the same prefill batched against one row at a time)
-              and in f32 (the weights widened) within
+              and, for rwkv6 and whisper (``kv_src`` and the self K/V
+              carried), in f32 (the weights widened) within
               ``FAMILY_INVARIANT_TOL_F32``.  Printed per config: init, prefill
               and decode seconds, prefill and decode tokens/s, peak memory,
               the kernels of one decode step and its idle share
@@ -232,7 +248,11 @@ Phases, one JSON line each on stdout:
               and as a replayed CUDA graph (``graph_ms``, the device time
               without the host's enqueue): median, min and max.  Edge
               update also at the path's typical small call (the median size
-              of ``lj/foregraph/bfs``'s calls, in ``foregraph_call``), with
+              of ``lj/foregraph/bfs``'s calls, in ``foregraph_call``),
+              attention also at whisper's encoder call (non-causal, (4,
+              1,500, 12/12, hd 64), bf16, from phase serve_families, in
+              ``encoder_call``) beside ``scaled_dot_product_attention(
+              is_causal=False)``, with
               ``torch.profiler``'s device us of its kernels and the atomics
               it takes at both calls, and the wrapper's host enqueue us a
               call at the small one.
@@ -285,10 +305,20 @@ SERVE_MAX_SEQ = 1056
 # jamba is cut to one period (8 layers: 51.4 B params, 103 GB, do not fit
 # the card) and arctic to 1 of 35 layers; rwkv and jamba take 256-token
 # prompts, as their time scans are eager per-token loops.
+# Then the encoder-decoder and vision-language families, with
+# the stub front ends' inputs seeded (normal x 0.05 at model width):
+# whisper at its published config with 224-token prompts (prompt and new
+# tokens within its 448-token text context), llama-vision cut to 2 of its
+# 20 periods (10 layers: 8 self-attention, 2 image layers; 100 layers are
+# 175 GB in bf16).
 FAMILY_SERVE = (("qwen2_moe_a2_7b", None, 1024), ("rwkv6_1_6b", None, 256),
-                ("jamba_v0_1_52b", 8, 256), ("arctic_480b", 1, 1024))
+                ("jamba_v0_1_52b", 8, 256), ("arctic_480b", 1, 1024),
+                ("whisper_small", None, 224), ("llama3_2_vision_90b", 10, 1024))
 FAMILY_REQUESTS, FAMILY_NEW = 8, 32
-FAMILY_QKV_ARCH = "qwen2_moe_a2_7b"  # B4 against plain on its real layer-0 q/k/v
+# B4 against plain on the real layer-0 q/k/v of wave 1 (the largest call:
+# whisper's is its encoder's, non-causal over 1,500 frames), causal or not
+FAMILY_QKV = {"qwen2_moe_a2_7b": True, "whisper_small": False, "llama3_2_vision_90b": True}
+FAMILY_STUB_SEED = 2026  # the stub front ends' inputs of phase serve_families
 # rwkv6's recurrence: prefill(prompt + [t]) against prefill(prompt) then
 # decode_step([t]).  In bf16 the two run matmuls of other shapes (S rows
 # against one), whose outputs round apart by bf16 ulps through 24 layers:
@@ -298,6 +328,10 @@ FAMILY_QKV_ARCH = "qwen2_moe_a2_7b"  # B4 against plain on its real layer-0 q/k/
 # an absolute tolerance (6.4e-5 measured there)
 FAMILY_INVARIANT_FLOOR_FACTOR = 3.0
 FAMILY_INVARIANT_TOL_F32 = 1e-3
+# whisper's prefill(prompt + [t]) against prefill(prompt) then decode([t]),
+# in f32 (the weights widened): kv_src and the self-attention K/V carried
+# in the cache; held to the same absolute tolerance
+FAMILY_INVARIANT = {"rwkv6_1_6b": ("bfloat16", "float32"), "whisper_small": ("float32",)}
 # rounds of the alternated kernel / library timings (median and spread)
 TIMING_ROUNDS = 7
 # the bf16 attention kernel must run wgmma and load by TMA: SASS opcodes
@@ -2232,7 +2266,10 @@ def phase_attention_vs_plain(dev) -> float:
     cases = [(1, 128, 2, 2, 64, True), (2, 256, 4, 2, 64, True),
              (1, 256, 4, 1, 32, True), (2, 384, 8, 8, 128, True),  # tests/test_kernels.py
              (4, 1024, 16, 8, 128, True), (2, 160, 16, 8, 128, True),  # qwen3, ragged S
-             (2, 256, 4, 2, 64, False)]  # non-causal
+             (2, 256, 4, 2, 64, False),  # non-causal
+             # non-causal at a ragged S: whisper's encoder (1,500 frames) and
+             # a tail of 32 keys past the 128-row block
+             (4, 1500, 12, 12, 64, False), (1, 160, 4, 2, 64, False)]
     rng = np.random.default_rng(2026)
     worst = {}
     t0 = time.perf_counter()
@@ -2256,8 +2293,10 @@ def phase_serve_golden(dev) -> dict:
     import numpy as np
     import torch
 
+    import gc
+
     from repro_torch.configs.base import ArchConfig
-    from repro_torch.interop import lm_params_numpy, load_lm_params
+    from repro_torch.interop import context_inputs_numpy, lm_params_numpy, load_lm_params
     from repro_torch.models import Model
     from repro_torch.serve.legacy.engine import Request, ServeEngine
 
@@ -2274,8 +2313,14 @@ def phase_serve_golden(dev) -> dict:
                              np.float32).reshape(g["logits_shape"])
         n, max_new = tokens.shape
         s = prompts.shape[1]
+        # the stub front ends' inputs, as the writer seeded them
+        extras = {k: torch.from_numpy(v).to(dev) for k, v in
+                  context_inputs_numpy(cfg, n, g["stub_seed"]).items()}
+        check({k: list(v.shape) for k, v in extras.items()} == g["stub_inputs"],
+              f"serve golden {g['name']}: stub inputs {extras.keys()} != {g['stub_inputs']}")
         cache = model.init_cache(n, s + max_new)
-        logits, cache = model.prefill({"tokens": torch.from_numpy(prompts).to(dev)}, cache)
+        logits, cache = model.prefill({"tokens": torch.from_numpy(prompts).to(dev), **extras},
+                                      cache)
         err = 0.0
         for step in range(max_new):
             got = logits[:, -1, : cfg.vocab].float().cpu().numpy()
@@ -2286,7 +2331,7 @@ def phase_serve_golden(dev) -> dict:
                 nxt = torch.from_numpy(tokens[:, step:step + 1]).to(dev)
                 logits, cache = model.decode_step(nxt, cache, s + step)
         served = ServeEngine(model, batch=n, max_seq=s + max_new).run(
-            [Request(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)])
+            [Request(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)], extras)
         check(len(served) == n, f"serve golden {g['name']}: {len(served)} of {n} answered")
         margins = np.asarray(g["margins"])
         ties = compared = 0
@@ -2299,8 +2344,11 @@ def phase_serve_golden(dev) -> dict:
                   f"serve golden {g['name']}: request {r.rid} tokens {r.out.tolist()} "
                   f"!= {tokens[r.rid].tolist()}")
         out[g["name"]] = dict(max_abs_err=err, near_ties=ties, tokens_compared=compared,
-                              tokens=n * max_new, router_min_gap=g.get("router_min_gap"))
-        del model, cache
+                              tokens=n * max_new, router_min_gap=g.get("router_min_gap"),
+                              stub_inputs=g["stub_inputs"])
+        del model, cache, logits, extras
+        gc.collect()  # the full-width vision cut holds 17.2 GB
+        torch.cuda.empty_cache()
     emit(dict(phase="serve_golden", configs=out, tolerance=tol, near_tie=near_tie,
               dtype="float32", seconds=round(time.perf_counter() - t0, 3)))
     return out
@@ -2418,27 +2466,30 @@ def phase_serve(dev, card: str) -> dict:
     return info
 
 
-def recurrence_invariant(model, toks, nxt) -> dict:
+def recurrence_invariant(model, toks, nxt, extras: dict, dtypes) -> dict:
     """The last logits of ``prefill(toks + nxt)`` against ``prefill(toks)``
-    then ``decode_step(nxt)``: in the model's bf16 beside bf16's noise
-    floor (the extended prefill batched against one row at a time), then
-    in f32 with the same weights widened (the model is left in f32)."""
+    then ``decode_step(nxt)``, with the batch's ``extras`` (the stub front
+    ends' inputs) in both prefills: in the model's bf16 beside bf16's noise
+    floor (the extended prefill batched against one row at a time), and in
+    f32 with the same weights widened (the model is left in f32), as
+    ``dtypes`` asks."""
     import dataclasses
 
     import torch
 
-    vocab, s = model.cfg.vocab, toks.shape[1]
+    arch, vocab, s = model.cfg.arch, model.cfg.vocab, toks.shape[1]
 
-    def last(tokens, extra=None):
+    def last(tokens, extra=None, rows=slice(None)):
         cache = model.init_cache(tokens.shape[0], s + 2)
-        logits, cache = model.prefill({"tokens": tokens}, cache)
+        logits, cache = model.prefill(
+            {"tokens": tokens, **{k: v[rows] for k, v in extras.items()}}, cache)
         if extra is not None:
             logits, _ = model.decode_step(extra, cache, s)
         return logits[:, -1, :vocab].float()
 
     ext = torch.cat([toks, nxt], dim=1)
     out = {}
-    for dtype in ("bfloat16", "float32"):
+    for dtype in dtypes:
         if dtype == "float32":
             model.float()
             model.cfg = dataclasses.replace(model.cfg, dtype="float32")
@@ -2448,25 +2499,27 @@ def recurrence_invariant(model, toks, nxt) -> dict:
             max_abs_err=err, logit_std=float(whole.std()),
             argmax_equal=bool(torch.equal(whole.argmax(-1), stepped.argmax(-1))))
         if dtype == "bfloat16":
-            rows = torch.cat([last(ext[i:i + 1]) for i in range(ext.shape[0])])
+            rows = torch.cat([last(ext[i:i + 1], rows=slice(i, i + 1))
+                              for i in range(ext.shape[0])])
             floor = float((whole - rows).abs().max())
             out[f"invariant_{dtype}"].update(noise_floor=floor,
                                              floor_factor=FAMILY_INVARIANT_FLOOR_FACTOR)
             check(err <= FAMILY_INVARIANT_FLOOR_FACTOR * floor,
-                  f"rwkv6 bf16: prefill(prompt + [t]) != prefill(prompt) + decode([t]): "
+                  f"{arch} bf16: prefill(prompt + [t]) != prefill(prompt) + decode([t]): "
                   f"{err} > {FAMILY_INVARIANT_FLOOR_FACTOR} x the noise floor {floor}")
         else:
             out[f"invariant_{dtype}"]["tolerance"] = FAMILY_INVARIANT_TOL_F32
             check(err <= FAMILY_INVARIANT_TOL_F32,
-                  f"rwkv6 f32: prefill(prompt + [t]) != prefill(prompt) + decode([t]): "
+                  f"{arch} f32: prefill(prompt + [t]) != prefill(prompt) + decode([t]): "
                   f"{err} > {FAMILY_INVARIANT_TOL_F32}")
     return out
 
 
 def phase_serve_families(dev, card: str) -> dict:
-    """The MoE, hybrid and SSM families in bf16 through ``ServeEngine.run``,
-    one model at a time (each freed before the next is built); the launch
-    counts are zeroed just before each run and read just after."""
+    """The MoE, hybrid, SSM, encoder-decoder and vision-language families in
+    bf16 through ``ServeEngine.run``, one model at a time (each freed before
+    the next is built); the launch counts are zeroed just before each run
+    and read just after."""
     import dataclasses
     import gc
 
@@ -2474,6 +2527,7 @@ def phase_serve_families(dev, card: str) -> dict:
     import torch
 
     from repro_torch.configs.base import get_arch
+    from repro_torch.interop import context_inputs_numpy
     from repro_torch.kernels import _platform
     from repro_torch.models import Model
     from repro_torch.models.transformer import layer_program
@@ -2485,7 +2539,9 @@ def phase_serve_families(dev, card: str) -> dict:
         cfg = get_arch(arch)
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
-        n_attn = sum(1 for spec in layer_program(cfg) if spec.mixer == "attn")
+        # B4 a wave: each self-attention layer's prefill, each encoder layer
+        n_attn = cfg.n_enc_layers + sum(1 for spec in layer_program(cfg)
+                                        if spec.mixer in ("attn", "self_cross"))
         max_seq = prompt_len + FAMILY_NEW
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2496,9 +2552,11 @@ def phase_serve_families(dev, card: str) -> dict:
         rng = np.random.default_rng(2026)
         prompts = [rng.integers(0, cfg.vocab, prompt_len).astype(np.int32)
                    for _ in range(FAMILY_REQUESTS)]
+        extras = {k: torch.from_numpy(v).to(dev) for k, v in
+                  context_inputs_numpy(cfg, SERVE_BATCH, FAMILY_STUB_SEED).items()}
         engine = ServeEngine(model, batch=SERVE_BATCH, max_seq=max_seq)
         # set-up: one short wave warms cuBLAS and the lazily loaded kernels
-        engine.run([Request(rid=0, prompt=prompts[0][:64], max_new=2)])
+        engine.run([Request(rid=0, prompt=prompts[0][:64], max_new=2)], extras)
 
         phases: list = []  # (kind, seconds) of every prefill / decode call
         finite: list = []  # a 0-d bool tensor a call: its logits are finite
@@ -2518,11 +2576,11 @@ def phase_serve_families(dev, card: str) -> dict:
         engine.prefill, engine.decode = timed("prefill", prefill), timed("decode", decode)
         requests = [Request(rid=i, prompt=p, max_new=FAMILY_NEW) for i, p in enumerate(prompts)]
         waves = -(-FAMILY_REQUESTS // SERVE_BATCH)
-        with KernelRecorder(keep_inputs=arch == FAMILY_QKV_ARCH) as rec:
+        with KernelRecorder(keep_inputs=arch in FAMILY_QKV) as rec:
             _platform.reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            done = engine.run(requests)
+            done = engine.run(requests, extras)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = _platform.launch_counts()
@@ -2547,10 +2605,12 @@ def phase_serve_families(dev, card: str) -> dict:
         # one decode step of a prefilled wave, profiled: kernels and idle share
         cache = model.init_cache(SERVE_BATCH, max_seq)
         toks = torch.from_numpy(np.stack(prompts[:SERVE_BATCH])).to(dev)
-        logits, cache = model.prefill({"tokens": toks}, cache)
+        logits, cache = model.prefill({"tokens": toks, **extras}, cache)
         nxt = torch.argmax(logits[:, -1, : cfg.vocab], dim=-1).to(torch.int32)[:, None]
         step = device_profile(lambda: model.decode_step(nxt, cache, prompt_len), reps=3)
         info = dict(arch=arch, dtype=cfg.dtype, n_layers=cfg.n_layers,
+                    n_enc_layers=cfg.n_enc_layers,
+                    stub_inputs={k: list(v.shape) for k, v in extras.items()},
                     published_layers=get_arch(arch).n_layers, params=params,
                     requests=FAMILY_REQUESTS, batch=SERVE_BATCH, waves=waves,
                     prompt_tokens=prompt_len, new_tokens=FAMILY_NEW, init_s=init_s,
@@ -2563,19 +2623,27 @@ def phase_serve_families(dev, card: str) -> dict:
                     decode_step_busy_ms=step.get("busy_ms"),
                     decode_step_window_ms=step.get("window_ms"),
                     peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        if arch == FAMILY_QKV_ARCH:
+        if arch in FAMILY_QKV:
             # B4 against its plain version on the real layer-0 q/k/v of wave 1
             q, k, v = rec.largest["attention"][1]
-            info["real_qkv_err"] = compare_attention(q, k, v, True,
-                                                     f"{arch}'s layer 0 in serving")
+            causal = FAMILY_QKV[arch]
+            info["real_qkv_err"] = compare_attention(
+                q, k, v, causal, f"{arch}'s layer 0 in serving (causal={causal})")
             info["real_qkv_shape"] = [list(q.shape), list(k.shape)]
-        if arch == "rwkv6_1_6b":  # last: it widens the weights to f32
-            info.update(recurrence_invariant(model, toks, nxt))
+            info["real_qkv_causal"] = causal
+            if arch == "whisper_small":  # the encoder's call, timed in phase kernels
+                check(q.shape[1] == cfg.n_frames,
+                      f"{arch}: the largest B4 call has S {q.shape[1]}, not the encoder's "
+                      f"{cfg.n_frames}")
+                info["encoder_call"] = (q, k, v)
+        if arch in FAMILY_INVARIANT:  # last: it widens the weights to f32
+            info.update(recurrence_invariant(model, toks, nxt, extras, FAMILY_INVARIANT[arch]))
         emit(dict(phase="serve_families", card=card, **{
-            k: round(v, 6) if isinstance(v, float) else v for k, v in info.items()}))
+            k: round(v, 6) if isinstance(v, float) else v for k, v in info.items()
+            if k != "encoder_call"}))
         out[arch] = info
         # the engine's bound methods hold the model too
-        del model, engine, prefill, decode, rec, cache, logits, toks, nxt
+        del model, engine, prefill, decode, rec, cache, logits, toks, nxt, extras
         gc.collect()
         torch.cuda.empty_cache()
     emit(dict(phase="serve_families", configs=len(out),
@@ -3153,10 +3221,12 @@ def main() -> None:
     serve = phase_serve(dev, smi)
     worst["attention"] = max(worst["attention"], serve["real_qkv_err"])
 
-    # 12. the MoE, hybrid and SSM families at full width
+    # 12. the MoE, hybrid, SSM, encoder-decoder and vision-language families
     families = phase_serve_families(dev, smi)
-    worst["attention"] = max(worst["attention"], families[FAMILY_QKV_ARCH]["real_qkv_err"])
+    worst["attention"] = max(worst["attention"],
+                             *(families[arch]["real_qkv_err"] for arch in FAMILY_QKV))
     families_launches = sum(f["attention_launches"] for f in families.values())
+    encoder_call = families["whisper_small"].pop("encoder_call")
 
     # 13. the LM training path in f32 against the reference's goldens
     train_golden = phase_train_golden(dev)
@@ -3173,6 +3243,10 @@ def main() -> None:
                   device_info["largest"]["edge_update"][1], device_info["foregraph_call"]),
               "spmv": phase_spmv_timing(device_info["largest"]["spmv"][1]),
               "attention": phase_attention_timing(*serve.pop("largest"))}
+    # B4 on whisper's encoder (non-causal, S 1,500) beside its largest causal call
+    timing["attention"]["encoder_call"] = phase_attention_timing(*encoder_call, causal=False)
+    worst["attention"] = max(worst["attention"],
+                             timing["attention"]["encoder_call"]["max_abs_err"])
     launches = {"dram_timing": info["counts"]["dram_timing"],
                 "edge_update": device_info["counts"]["edge_update"],
                 "spmv": device_info["counts"]["spmv"],
@@ -3206,7 +3280,11 @@ def main() -> None:
         multihost_launches=multihost["multihost_launches"][name],
         **({"train_launches": train["train_launches"],
             "train_serve_launches": train["serve_launches"],
-            "families_launches": families_launches} if name == "attention" else {}),
+            "families_launches": families_launches,
+            "encoder_call": {key: timing[name]["encoder_call"][key] for key in (
+                "shape", "ms", "graph_ms", "bound_ms", "bound_by", "library_ms",
+                "graph_library_ms", "plain_ms", "max_abs_err")}}
+           if name == "attention" else {}),
         **{key: timing[name][key] for key in EXTRA_KEYS if key in timing[name]},
         card=smi) for name in KERNELS]))
     print(smi, flush=True)

@@ -6,7 +6,8 @@ functions build the port's objects from the reference's objects flattened
 to numpy arrays and plain dicts (``dataclasses.asdict``), so a caller can
 hand both packages the same inputs without the port importing the
 reference.  The LM scaffolding's weights cross the same way:
-``lm_params_numpy`` makes a numpy parameter tree in the reference's layout,
+``lm_params_numpy`` makes a numpy parameter tree in the reference's layout
+(and ``context_inputs_numpy`` the stub front ends' inputs),
 ``load_lm_params`` carries such a tree (or a real reference init turned
 into numpy) into the port's ``Model``, and ``lm_params_to_numpy`` turns the
 model's parameters (or any tensors named as them: gradients, moments) back
@@ -79,13 +80,15 @@ def _np_dtype(name: str):
 
 def lm_params_numpy(cfg, seed: int = 0) -> dict:
     """A numpy parameter tree with exactly the structure, shapes and dtypes
-    of the reference's ``Model(cfg).init_abstract()`` for a ``cfg`` of a
-    ported family: the blocks are stacked per period position of
-    ``layer_program(cfg)`` on axis 0 (a list of ``period`` dicts whose
-    leaves stack the ``n_layers / period`` repeats), weights are ``(in,
-    out)``, and the leaves that the reference keeps in f32 (the router, the
-    SSM decays and mixes) are f32 in a bf16 tree too.  Values come from
-    ``np.random.default_rng(seed)``, leaf by leaf in a fixed order: fan-in
+    of the reference's ``Model(cfg).init_abstract()``: the blocks are
+    stacked per period position of ``layer_program(cfg)`` on axis 0 (a list
+    of ``period`` dicts whose leaves stack the ``n_layers / period``
+    repeats), as are whisper's encoder blocks (``enc.blocks``, period 1),
+    weights are ``(in, out)``, and the leaves that the reference keeps in
+    f32 (the router, the SSM decays and mixes) are f32 in a bf16 tree too.
+    Values come from ``np.random.default_rng(seed)``, leaf by leaf in a
+    fixed order (the cross-attention leaves and the encoder last, so the
+    other families' trees do not depend on them): fan-in
     truncated normals for the weights (std 0.5 for mamba's conv), normal x
     0.01 for the embedding, normal x 0.1 for rwkv's bonus ``u``, and every
     other leaf drawn around its init value (norm scales and ``D`` around 1,
@@ -94,15 +97,8 @@ def lm_params_numpy(cfg, seed: int = 0) -> dict:
     too."""
     from repro_torch.models import ssm
     from repro_torch.models.model import padded_vocab
-    from repro_torch.models.transformer import (
-        PORTED_FAMILIES,
-        find_period,
-        layer_program,
-        not_ported,
-    )
+    from repro_torch.models.transformer import LayerSpec, find_period, layer_program
 
-    if cfg.family not in PORTED_FAMILIES:
-        raise not_ported(f"family {cfg.family!r} ({cfg.arch})", cfg.family)
     rng = np.random.default_rng(seed)
     dtype = _np_dtype(cfg.dtype)
     program = layer_program(cfg)
@@ -112,11 +108,17 @@ def lm_params_numpy(cfg, seed: int = 0) -> dict:
 
     def dense(*shape, std=None, dt=dtype):
         out = rng.standard_normal(shape)
-        bad = np.abs(out) > 3.0
-        while bad.any():  # truncate to [-3, 3] by redrawing
-            out[bad] = rng.standard_normal(int(bad.sum()))
-            bad = np.abs(out) > 3.0
-        return (out / np.sqrt(shape[-2]) if std is None else out * std).astype(dt)
+        flat = out.reshape(-1)
+        bad = np.flatnonzero((flat > 3.0) | (flat < -3.0))
+        while bad.size:  # truncate to [-3, 3] by redrawing, in C order
+            flat[bad] = rng.standard_normal(bad.size)
+            bad = bad[np.abs(flat[bad]) > 3.0]  # only a redrawn value can be out
+        # in place: a full-width leaf's f64 draw is GBs
+        if std is None:
+            np.divide(out, np.sqrt(shape[-2]), out=out)
+        else:
+            np.multiply(out, std, out=out)
+        return out.astype(dt)
 
     def around(value, *shape, spread=0.1, dt=dtype):
         return (value + spread * rng.standard_normal(shape)).astype(dt)
@@ -127,17 +129,16 @@ def lm_params_numpy(cfg, seed: int = 0) -> dict:
     def bias(*shape):
         return around(0.0, *shape, spread=0.02)
 
-    def mlp(width):
-        return {"wg": dense(reps, d, width), "wi": dense(reps, d, width),
-                "wo": dense(reps, width, d)}
+    def mlp(width, n=reps):
+        return {"wg": dense(n, d, width), "wi": dense(n, d, width), "wo": dense(n, width, d)}
 
-    def attention():
-        attn = {"wq": dense(reps, d, nq), "wk": dense(reps, d, nkv),
-                "wv": dense(reps, d, nkv), "wo": dense(reps, nq, d)}
+    def attention(n=reps):
+        attn = {"wq": dense(n, d, nq), "wk": dense(n, d, nkv),
+                "wv": dense(n, d, nkv), "wo": dense(n, nq, d)}
         if cfg.qkv_bias:
-            attn.update(bq=bias(reps, nq), bk=bias(reps, nkv), bv=bias(reps, nkv))
+            attn.update(bq=bias(n, nq), bk=bias(n, nkv), bv=bias(n, nkv))
         if cfg.qk_norm:
-            attn.update(q_norm={"scale": scale(reps, hd)}, k_norm={"scale": scale(reps, hd)})
+            attn.update(q_norm={"scale": scale(n, hd)}, k_norm={"scale": scale(n, hd)})
         return attn
 
     def mamba():
@@ -178,13 +179,13 @@ def lm_params_numpy(cfg, seed: int = 0) -> dict:
                 "mu_r": around(0.5, reps, d, dt=np.float32),
                 "wk": dense(reps, d, dff), "wv": dense(reps, dff, d), "wr": dense(reps, d, d)}
 
-    def block(spec):
-        mixer = {"attn": ("attn", attention), "mamba": ("mixer", mamba),
-                 "rwkv": ("mixer", rwkv)}[spec.mixer]
-        ffn = {"mlp": ("mlp", lambda: mlp(dff)), "moe": ("moe", moe),
+    def block(spec, n=reps):
+        mixer = {"mamba": ("mixer", mamba), "rwkv": ("mixer", rwkv)}.get(
+            spec.mixer, ("attn", lambda: attention(n)))  # attn, attn_nc, cross, self_cross
+        ffn = {"mlp": ("mlp", lambda: mlp(dff, n)), "moe": ("moe", moe),
                "rwkv_ffn": ("ffn", rwkv_ffn)}[spec.ffn]
         out = {mixer[0]: mixer[1]()}
-        out.update(norm1={"scale": scale(reps, d)}, norm2={"scale": scale(reps, d)})
+        out.update(norm1={"scale": scale(n, d)}, norm2={"scale": scale(n, d)})
         out[ffn[0]] = ffn[1]()
         return out
 
@@ -192,7 +193,30 @@ def lm_params_numpy(cfg, seed: int = 0) -> dict:
     if not cfg.tie_embeddings:
         embed["head"] = dense(d, vp)
     blocks = [block(program[i]) for i in range(period)]
-    return {"embed": embed, "blocks": blocks, "final_norm": {"scale": scale(d)}}
+    tree = {"embed": embed, "blocks": blocks, "final_norm": {"scale": scale(d)}}
+    for blk, spec in zip(blocks, program):
+        if spec.mixer == "self_cross":
+            blk.update(cross=attention(), norm_cross={"scale": scale(reps, d)})
+    if cfg.n_enc_layers:  # the encoder's program is one layer repeated: period 1
+        tree["enc"] = {"blocks": [block(LayerSpec("attn_nc", "mlp"), cfg.n_enc_layers)],
+                       "final_norm": {"scale": scale(d)}}
+    return tree
+
+
+def context_inputs_numpy(cfg, batch: int, seed: int) -> dict:
+    """The stub front ends' inputs that a config's batches need, as
+    ``tests/test_arch_smoke.py`` makes them: ``{"enc_frames": (batch,
+    n_frames, d)}`` or ``{"img_embeds": (batch, n_img_tokens, d)}``, normal
+    x 0.05 in f32 from ``np.random.default_rng(seed)``; ``{}`` for a
+    text-only config."""
+    from repro_torch.models.model import context_input
+
+    spec = context_input(cfg)
+    if spec is None:
+        return {}
+    key, length = spec
+    rng = np.random.default_rng(seed)
+    return {key: (0.05 * rng.standard_normal((batch, length, cfg.d_model))).astype(np.float32)}
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -214,18 +238,23 @@ def tree_leaves(node, prefix: str = ""):
 
 def _stacked_targets(model) -> dict[str, list]:
     """reference tree path -> [(parameter name, index on the stacked axis or
-    None)]: layer ``r * period + i`` is ``blocks[i][leaf][r]``."""
+    None)]: layer ``r * period + i`` of a stack (``blocks``, or the
+    encoder's ``enc.blocks``) is ``<stack>[i][leaf][r]``, with the period of
+    that stack's layer program."""
     from repro_torch.models.transformer import find_period
 
-    period, _ = find_period(model.program)
+    periods = {"blocks.": find_period(model.program)[0]}
+    if model.enc is not None:
+        periods["enc.blocks."] = find_period(model.enc_program)[0]
     targets: dict[str, list] = {}
     for name, _ in model.named_parameters():
-        if not name.startswith("blocks."):
+        stack = next((s for s in periods if name.startswith(s)), None)
+        if stack is None:
             targets[name] = [(name, None)]
             continue
-        li, rest = name.split(".", 2)[1:]
-        i, r = int(li) % period, int(li) // period
-        targets.setdefault(f"blocks.{i}.{rest}", []).append((name, r))
+        li, rest = name[len(stack):].split(".", 1)
+        i, r = int(li) % periods[stack], int(li) // periods[stack]
+        targets.setdefault(f"{stack}{i}.{rest}", []).append((name, r))
     return targets
 
 

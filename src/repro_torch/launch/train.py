@@ -8,7 +8,10 @@ card; without one it prints ``error: ...`` and exits 2), streams the
 deterministic synthetic corpus, and runs supervised (checkpoint/restart,
 straggler-monitored) training.  There is no mesh: the port trains on one
 device.  A config with experts also reports the last step's MoE aux losses
-(``moe_lb_loss``, ``moe_z_loss``).
+(``moe_lb_loss``, ``moe_z_loss``).  The encoder-decoder and
+vision-language configs need ``enc_frames`` or ``img_embeds``, which the
+synthetic corpus does not make: the launcher prints ``error: ...`` naming
+the missing input and exits 2 (the reference fails on the missing key).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import get_arch
 from repro_torch.kernels._platform import resolve_device
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, context_input
 from repro_torch.train import optimizer as opt
 from repro_torch.train.checkpoint import Checkpointer
 from repro_torch.train.data import DataConfig, make_source
@@ -67,11 +70,11 @@ def main(argv=None) -> int:
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
 
-    try:
-        model = Model(cfg, device=device)
-    except NotImplementedError as e:
-        print(f"error: {e}", file=sys.stderr)
+    if context_input(cfg) is not None:
+        print(f"error: {cfg.arch} needs {context_input(cfg)[0]!r} in every batch, which "
+              f"the synthetic corpus does not make", file=sys.stderr)
         return 2
+    model = Model(cfg, device=device)
     model.init(torch.Generator(device=device).manual_seed(0))
     print(f"arch={cfg.arch} params={cfg.param_count()/1e6:.1f}M device={device}")
 

@@ -1,17 +1,22 @@
-"""Grouped-query attention for training, prefill and decode (port of
-``repro/models/attention.py``, the parts of its causal self-attention).
+"""Grouped-query attention for training, prefill and decode, and
+cross-attention (port of ``repro/models/attention.py``).
 
 Training takes the reference's own math: einsum ``_sdpa`` with the additive
-``causal_mask``, or the query-chunked ``_blocked_sdpa`` above
-``BLOCKED_ATTN_THRESHOLD`` (``train_self_attention``), so autograd
-differentiates plain torch ops.  Serving differs from the reference on
-purpose: causal prefill self-attention goes through the port's attention
-kernel (``kernels.attention.ops.flash_attention``, ``csrc/attention.cu`` on
-the card), where the reference computes it with ``_sdpa`` to keep its
-dry-run's XLA cost analysis readable.  The function is the same; the
-results are allclose.  The kernel has no backward and refuses to be
-differentiated on the card.  Decode keeps ``_sdpa`` over the whole cache
-with the ``<= pos`` mask, as the reference does.
+``causal_mask`` (none for the encoder's non-causal layers), or the
+query-chunked ``_blocked_sdpa`` above ``BLOCKED_ATTN_THRESHOLD``
+(``train_self_attention``), so autograd differentiates plain torch ops.
+Serving differs from the reference on purpose: full-sequence
+self-attention, causal in prefill and non-causal in whisper's encoder,
+goes through the port's attention kernel
+(``kernels.attention.ops.flash_attention``, ``csrc/attention.cu`` on the
+card), where the reference computes it with ``_sdpa`` to keep its dry-run's
+XLA cost analysis readable.  The function is the same; the results are
+allclose.  The kernel has no backward and refuses to be differentiated on
+the card.  Decode keeps ``_sdpa`` over the whole cache with the ``<= pos``
+mask, as the reference does.  ``cross_attention`` (queries from the text,
+keys and values from the encoder's output or the image embeddings) is
+``_sdpa`` everywhere, as in the reference: the kernel takes one S for q
+and k/v.
 
 The KV cache has the reference's layout, ``(B, max_seq, nkv, hd)`` per
 layer.  Unlike the reference's functional update, prefill and decode write
@@ -168,6 +173,25 @@ def train_self_attention(p: Attention, cfg, x: torch.Tensor,
     else:
         out = _sdpa(q, k, v, causal_mask(s, s, device=x.device) if causal else None)
     return out @ p.wo
+
+
+def cross_attention(p: Attention, cfg, x: torch.Tensor, kv_src: torch.Tensor) -> torch.Tensor:
+    """Queries from x (B, S, D), keys and values from kv_src (B, T, D):
+    whisper's decoder over the encoder's output, llama-vision's image
+    layers over the patch embeddings.  As in the reference, no RoPE and no
+    ``bq bk bv`` on this path (the biases of a ``qkv_bias`` config are
+    ignored), ``qk_norm`` where the config has it, no mask.  Plain torch
+    ops, for training and serving alike."""
+    b, s, _ = x.shape
+    t = kv_src.shape[1]
+    hd = cfg.head_dim
+    q = (x @ p.wq).reshape(b, s, cfg.n_heads, hd)
+    k = (kv_src @ p.wk).reshape(b, t, cfg.n_kv_heads, hd)
+    v = (kv_src @ p.wv).reshape(b, t, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = p.q_norm(q)
+        k = p.k_norm(k)
+    return _sdpa(q, k, v, None) @ p.wo
 
 
 # ---------------------------------------------------------------------------

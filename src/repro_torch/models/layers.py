@@ -1,5 +1,4 @@
-"""Shared layers of the LM zoo, the parts that the ported families' serving
-and training use (port of ``repro/models/layers.py``).
+"""Shared layers of the LM zoo (port of ``repro/models/layers.py``).
 
 Plain functions on tensors.  Compute runs in the config dtype (bf16 on the
 card) with f32 where the reference takes it (norms, RoPE, the SwiGLU
@@ -54,6 +53,17 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     var = (xf * xf).mean(dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * scale.float()).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Mean and variance in f32 (no config of the zoo uses it: the zoo
+    normalises with RMS norms throughout)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    normed = (xf - mu) * torch.rsqrt(var + eps)
+    return (normed * scale.float() + bias.float()).to(x.dtype)
 
 
 def weight(*shape: int, dtype, device, fill: float = 0.0) -> nn.Parameter:

@@ -8,9 +8,12 @@ one token per step for the whole wave.
 
 The port's model holds its weights, so the engine takes the model alone,
 and runs eagerly (the reference's ``jit`` flag has no counterpart).  It
-runs on the model's device, for every family ``Model`` runs: the cache
-holds each attention layer's K/V and each mamba or rwkv layer's recurrent
-state, which prefill fills and decode carries.
+runs on the model's device, for every family: the cache holds each
+self-attention layer's K/V, each mamba or rwkv layer's recurrent state and
+the cross-attention context ``kv_src``, which prefill fills and decode
+carries.  ``run(requests, extras)`` gives every wave's prefill the
+``extras`` arrays as well (the stub front ends' ``enc_frames`` or
+``img_embeds``, batch-sized), as the reference's does.
 """
 from __future__ import annotations
 
@@ -50,8 +53,10 @@ class ServeEngine:
     def _greedy(self, logits: torch.Tensor) -> np.ndarray:
         return torch.argmax(logits[:, -1, : self.model.cfg.vocab], dim=-1).cpu().numpy()
 
-    def run(self, requests: list[Request]) -> list[Request]:
-        """Serve a list of requests in fixed-size waves (greedy decoding)."""
+    def run(self, requests: list[Request], extras: dict | None = None) -> list[Request]:
+        """Serve a list of requests in fixed-size waves (greedy decoding).
+        ``extras``: batch entries of shape (batch, ...) (arrays or tensors)
+        added to every wave's prefill."""
         done: list[Request] = []
         queue = list(requests)
         dev = self.model.device
@@ -66,6 +71,8 @@ class ServeEngine:
             assert width + max(r.max_new for r in wave) <= self.max_seq
             cache = self.model.init_cache(self.batch, self.max_seq)
             batch = {"tokens": torch.from_numpy(toks).to(dev)}
+            if extras:
+                batch.update({k: torch.as_tensor(v).to(dev) for k, v in extras.items()})
             logits, cache = self.prefill(batch, cache)
             # NOTE: with right-padding, the "last" prompt token for shorter
             # requests is a pad; the engine serves same-length waves exactly

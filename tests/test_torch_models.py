@@ -1,5 +1,9 @@
 """The port's LM configs, layers and dense model against the JAX package
-(the MoE, hybrid and SSM families: ``tests/test_torch_families.py``).
+(the MoE, hybrid and SSM families: ``tests/test_torch_families.py``; the
+encoder-decoder and vision-language ones:
+``tests/test_torch_encdec_vlm.py``).  Every registered architecture's
+``reduced()`` config builds a ``Model`` that its ``lm_params_numpy`` tree
+loads into.
 
 Configs are plain data and must equal the reference field for field.
 Layers and the model are compared in f32 on the same numpy inputs: the
@@ -27,11 +31,10 @@ from repro_torch.configs import base
 from repro_torch.interop import lm_params_numpy, load_lm_params, tree_leaves
 from repro_torch.models import Model, padded_vocab
 from repro_torch.models import layers
-from repro_torch.models.transformer import LATER_SLICE, find_period, layer_program
+from repro_torch.models.transformer import find_period, layer_program
 
 DENSE = ["minitron_8b", "qwen2_7b", "qwen2_5_3b", "qwen3_0_6b"]
 FAMILIES = ["qwen2_moe_a2_7b", "arctic_480b", "jamba_v0_1_52b", "rwkv6_1_6b"]
-OTHER = [a for a in ref_base.ARCH_IDS if a not in DENSE + FAMILIES]
 TOL = 1e-4  # f32 model logits: matmul sums run in another order than XLA's
 
 
@@ -232,10 +235,16 @@ def test_load_lm_params_rejects_a_mismatched_tree():
         load_lm_params(Model(cfg, device="cpu"), tree)
 
 
-@pytest.mark.parametrize("arch", OTHER)
-def test_other_families_raise(arch):
+@pytest.mark.parametrize("arch", ref_base.ARCH_IDS)
+def test_every_arch_builds_and_loads_its_tree(arch):
+    """Every registered architecture's ``reduced()`` config builds a
+    ``Model``, and its ``lm_params_numpy`` tree (the reference's
+    ``init_abstract`` structure) loads into it, every parameter from a leaf."""
     cfg = base.get_arch(arch).reduced()
-    with pytest.raises(NotImplementedError, match=f"comes with the {LATER_SLICE[cfg.family]}"):
-        Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        lm_params_numpy(cfg, 0)
+    tree = lm_params_numpy(cfg, 0)
+    abstract = RefModel(ref_base.get_arch(arch).reduced()).init_abstract()
+    assert jax.tree.structure(tree) == jax.tree.structure(abstract)
+    model = load_lm_params(Model(cfg, device="cpu"), tree)
+    assert sum(p.numel() for p in model.parameters()) == \
+        sum(a.size for a in jax.tree.leaves(tree))
+    assert (model.enc is not None) == bool(cfg.n_enc_layers)

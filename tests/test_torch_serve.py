@@ -9,25 +9,33 @@ on the CPU must give the reference ``ServeEngine``'s tokens on the
 for f32 configurations, with weights from
 ``interop.lm_params_numpy(cfg, seed)``: ``qwen3_0_6b.reduced()`` and
 ``qwen3_0_6b`` at its full widths cut to 2 layers and a 1,024-token vocab
-(head_dim 128, GQA 16/8); the ``reduced()`` configs of the MoE, hybrid and
-SSM architectures; ``rwkv6_1_6b`` at full width cut to 2 layers; and
-``qwen2_moe_a2_7b`` at full width cut to 1 layer (60 experts, ~0.57 B
-parameters, 2.3 GB in f32), each with a 1,024-token vocab.  Two seeded
-160-token prompts (S crosses a 128-row block with a ragged tail) are
-decoded greedily for 8 tokens; the file keeps the tokens, the logits of
-every step and each step's top-2 margin, and for a MoE configuration the
-smallest gap between the k-th and (k+1)-th router probability over every
-routing of those steps (a gap within float noise could flip an expert).
-The card's machine has no JAX, so ``chip_smoke.py`` holds the port on the
-card against this file; here the port on the CPU is, but for the
-full-width MoE cut (``ON_CARD``: too large for the CPU suite), which the
-card alone serves.  The logits must agree within ``tolerance`` at every
-step (teacher-forced), and the greedy tokens must agree up to the first
+(head_dim 128, GQA 16/8); the ``reduced()`` configs of the MoE, hybrid,
+SSM, encoder-decoder and vision-language architectures; ``rwkv6_1_6b`` at
+full width cut to 2 layers; ``qwen2_moe_a2_7b`` at full width cut to 1
+layer (60 experts, ~0.57 B parameters, 2.3 GB in f32); ``whisper_small``
+at full width cut to 2 decoder and 2 encoder layers over all 1,500 frames
+(the encoder's non-causal attention at a ragged S); and
+``llama3_2_vision_90b`` at full width cut to one period of 5 layers (4
+self-attention, 1 image layer over 1,601 patches; ~4.3 B parameters, 17.2
+GB in f32), each with a 1,024-token vocab.  The stub front ends' inputs
+(``enc_frames``, ``img_embeds``) come from
+``interop.context_inputs_numpy`` with seed ``STUB_SEED + weight seed``.
+Two seeded 160-token prompts (S crosses a 128-row block with a ragged
+tail) are decoded greedily for 8 tokens; the file keeps the tokens, the
+logits of every step and each step's top-2 margin, and for a MoE
+configuration the smallest gap between the k-th and (k+1)-th router
+probability over every routing of those steps (a gap within float noise
+could flip an expert).  The card's machine has no JAX, so
+``chip_smoke.py`` holds the port on the card against this file; here the
+port on the CPU is, but for the full-width MoE and vision cuts
+(``ON_CARD``: too large for the CPU suite), which the card alone serves.
+The logits must agree within ``tolerance`` at every step
+(teacher-forced), and the greedy tokens must agree up to the first
 step whose top-2 margin is within 10 x ``tolerance`` (a near-tie may
 flip).
 
-Regenerate the file (about a minute on a CPU, most of it the full-width
-MoE cut):
+Regenerate the file (about 200 s on an 8-core CPU, most of it the
+full-width vision cut, whose writing peaks at ~27 GB of host memory):
 
     PYTHONPATH=src python tests/test_torch_serve.py --write
 """
@@ -56,7 +64,11 @@ from repro.serve.legacy.engine import Request as RefRequest  # noqa: E402
 from repro.serve.legacy.engine import ServeEngine as RefServeEngine  # noqa: E402
 from repro.serve.legacy.serve_step import make_decode_step as ref_make_decode_step  # noqa: E402
 from repro_torch.configs.base import ArchConfig, get_arch  # noqa: E402
-from repro_torch.interop import lm_params_numpy, load_lm_params  # noqa: E402
+from repro_torch.interop import (  # noqa: E402
+    context_inputs_numpy,
+    lm_params_numpy,
+    load_lm_params,
+)
 from repro_torch.kernels import _platform  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.serve.legacy.engine import Request, ServeEngine  # noqa: E402
@@ -70,7 +82,10 @@ PROMPT_LEN, N_PROMPTS, MAX_NEW = 160, 2, 8
 
 
 FAMILIES = ["qwen2_moe_a2_7b", "arctic_480b", "jamba_v0_1_52b", "rwkv6_1_6b"]
-ON_CARD = "qwen2_moe_a2_7b.full_width.1_layer"  # held by chip_smoke.py alone
+CONTEXT_FAMILIES = ["whisper_small", "llama3_2_vision_90b"]
+# held by chip_smoke.py alone
+ON_CARD = ("qwen2_moe_a2_7b.full_width.1_layer", "llama3_2_vision_90b.full_width.5_layers")
+STUB_SEED = 2000  # + the weight seed: the stub front ends' inputs
 
 
 def golden_configs() -> list[tuple[str, ArchConfig, int]]:
@@ -83,9 +98,23 @@ def golden_configs() -> list[tuple[str, ArchConfig, int]]:
             for i, arch in enumerate(FAMILIES)]
     out += [("rwkv6_1_6b.full_width.2_layers", dataclasses.replace(
                 get_arch("rwkv6_1_6b"), n_layers=2, vocab=1024, dtype="float32"), 6),
-            (ON_CARD, dataclasses.replace(
+            (ON_CARD[0], dataclasses.replace(
                 get_arch("qwen2_moe_a2_7b"), n_layers=1, vocab=1024, dtype="float32"), 7)]
+    out += [(f"{arch}.reduced", get_arch(arch).reduced(), 8 + i)
+            for i, arch in enumerate(CONTEXT_FAMILIES)]
+    out += [("whisper_small.full_width.2_layers", dataclasses.replace(
+                get_arch("whisper_small"), n_layers=2, n_enc_layers=2, vocab=1024,
+                dtype="float32"), 10),
+            (ON_CARD[1], dataclasses.replace(
+                get_arch("llama3_2_vision_90b"), n_layers=5, vocab=1024, dtype="float32"), 11)]
     return out
+
+
+def stub_inputs(cfg, seed: int) -> dict:
+    """The stub front ends' inputs of a golden's prompts (``{}`` for a
+    text-only config); the file records their seed (``stub_seed``) and
+    shapes."""
+    return context_inputs_numpy(cfg, N_PROMPTS, STUB_SEED + seed)
 
 
 def _prompts(cfg, seed: int) -> np.ndarray:
@@ -99,6 +128,17 @@ def _b64(a: np.ndarray) -> str:
 
 def _unb64(s: str, shape) -> np.ndarray:
     return np.frombuffer(base64.b64decode(s), np.float32).reshape(shape)
+
+
+def _jax_leaves(node):
+    """The tree with each numpy leaf replaced by a JAX array in turn, so
+    that the numpy copy of a leaf is freed before the next is converted."""
+    for key in (list(node) if isinstance(node, dict) else range(len(node))):
+        if isinstance(node[key], (dict, list)):
+            _jax_leaves(node[key])
+        else:
+            node[key] = jnp.asarray(node[key])
+    return node
 
 
 def min_router_gap(model, params, prompts, tokens) -> float:
@@ -129,12 +169,14 @@ def write_golden() -> None:
     for name, cfg, seed in golden_configs():
         ref_cfg = dataclasses.replace(ref_get_arch(cfg.arch), **dataclasses.asdict(cfg))
         model = RefModel(ref_cfg)
-        params = jax.tree.map(jnp.asarray, lm_params_numpy(cfg, seed))
+        params = _jax_leaves(lm_params_numpy(cfg, seed))
         prompts = _prompts(cfg, seed)
+        extras = {k: jnp.asarray(v) for k, v in stub_inputs(cfg, seed).items()}
         max_seq = PROMPT_LEN + MAX_NEW
         # stepwise greedy, keeping the logits each token was chosen from
         cache = model.init_cache(N_PROMPTS, max_seq)
-        logits, cache = jax.jit(model.prefill)(params, {"tokens": jnp.asarray(prompts)}, cache)
+        logits, cache = jax.jit(model.prefill)(
+            params, {"tokens": jnp.asarray(prompts), **extras}, cache)
         decode = jax.jit(model.decode_step)
         steps, tokens = [], []
         for step in range(MAX_NEW):
@@ -146,7 +188,8 @@ def write_golden() -> None:
                                        jnp.int32(PROMPT_LEN + step))
         tokens = np.stack(tokens, 1)  # (N_PROMPTS, MAX_NEW)
         served = RefServeEngine(model, params, batch=N_PROMPTS, max_seq=max_seq).run(
-            [RefRequest(rid=i, prompt=p, max_new=MAX_NEW) for i, p in enumerate(prompts)])
+            [RefRequest(rid=i, prompt=p, max_new=MAX_NEW) for i, p in enumerate(prompts)],
+            extras=extras)
         for r in served:
             assert r.out.tolist() == tokens[r.rid].tolist(), "engine != stepwise greedy"
         logits = np.stack(steps, 1)  # (N_PROMPTS, MAX_NEW, vocab)
@@ -155,12 +198,13 @@ def write_golden() -> None:
             name=name, config=dataclasses.asdict(cfg), weight_seed=seed,
             prompts=prompts.tolist(), max_new=MAX_NEW, tokens=tokens.tolist(),
             margins=(top2[..., 1] - top2[..., 0]).tolist(),
-            logits_shape=list(logits.shape), logits_f32_b64=_b64(logits))
+            logits_shape=list(logits.shape), logits_f32_b64=_b64(logits),
+            stub_seed=STUB_SEED + seed, stub_inputs={k: list(v.shape) for k, v in extras.items()})
         if cfg.n_experts:
             record["router_min_gap"] = min_router_gap(model, params, prompts, tokens)
         records.append(record)
         print(name, tokens.tolist(), record.get("router_min_gap", ""), flush=True)
-        del params, model
+        del params, model, cache, extras
     GOLDEN_PATH.parent.mkdir(parents=True, exist_ok=True)
     GOLDEN_PATH.write_text(json.dumps(dict(tolerance=TOLERANCE, near_tie=NEAR_TIE,
                                            configs=records), indent=1) + "\n")
@@ -180,26 +224,37 @@ def test_golden_file_covers_the_configurations():
         assert g["logits_shape"] == [N_PROMPTS, MAX_NEW, cfg.vocab]
         assert ("router_min_gap" in g) == bool(cfg.n_experts)
         assert g.get("router_min_gap", 1.0) > 0  # no exact tie among the k-th choices
-    # the card's full-width MoE cut: the published config but for depth,
-    # vocab and dtype
-    published = dataclasses.asdict(get_arch("qwen2_moe_a2_7b"))
-    cut = golden[ON_CARD]["config"]
-    assert {k for k in cut if cut[k] != published[k]} == {"n_layers", "vocab", "dtype"}
-    assert (cut["n_layers"], cut["vocab"], cut["dtype"]) == (1, 1024, "float32")
+        assert g["stub_seed"] == STUB_SEED + seed
+        assert g["stub_inputs"] == {k: list(v.shape) for k, v in stub_inputs(cfg, seed).items()}
+    # the card's full-width MoE and vision cuts: the published config but
+    # for depth (one period of the vision model's layer program), vocab and
+    # dtype
+    for name, arch, layers in zip(ON_CARD, ("qwen2_moe_a2_7b", "llama3_2_vision_90b"), (1, 5)):
+        published = dataclasses.asdict(get_arch(arch))
+        cut = golden[name]["config"]
+        assert {k for k in cut if cut[k] != published[k]} == {"n_layers", "vocab", "dtype"}
+        assert (cut["n_layers"], cut["vocab"], cut["dtype"]) == (layers, 1024, "float32")
+    assert golden[ON_CARD[1]]["stub_inputs"] == {"img_embeds": [N_PROMPTS, 1601, 8192]}
+    assert golden["whisper_small.full_width.2_layers"]["stub_inputs"] == \
+        {"enc_frames": [N_PROMPTS, 1500, 768]}
 
 
-@pytest.mark.parametrize("name", [name for name, _, _ in golden_configs() if name != ON_CARD])
+@pytest.mark.parametrize("name", [name for name, _, _ in golden_configs()
+                                  if name not in ON_CARD])
 def test_port_matches_serve_golden(name):
     g = _golden()[name]
     cfg = ArchConfig(**g["config"])
     model = load_lm_params(Model(cfg, device="cpu"), lm_params_numpy(cfg, g["weight_seed"]))
+    extras = stub_inputs(cfg, g["weight_seed"])
     prompts = np.asarray(g["prompts"], np.int32)
     tokens = np.asarray(g["tokens"], np.int32)
     want = _unb64(g["logits_f32_b64"], g["logits_shape"])
     n, max_new = tokens.shape
     # teacher-forced: every step's logits
     cache = model.init_cache(n, PROMPT_LEN + max_new)
-    logits, cache = model.prefill({"tokens": torch.from_numpy(prompts)}, cache)
+    logits, cache = model.prefill(
+        {"tokens": torch.from_numpy(prompts), **{k: torch.from_numpy(v)
+                                                 for k, v in extras.items()}}, cache)
     for step in range(max_new):
         np.testing.assert_allclose(logits[:, -1, : cfg.vocab].numpy(), want[:, step],
                                    rtol=TOLERANCE, atol=TOLERANCE, err_msg=f"step {step}")
@@ -208,7 +263,7 @@ def test_port_matches_serve_golden(name):
                                               cache, PROMPT_LEN + step)
     # greedy through the engine, up to each request's first near-tie
     served = ServeEngine(model, batch=n, max_seq=PROMPT_LEN + max_new).run(
-        [Request(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)])
+        [Request(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)], extras)
     margins = np.asarray(g["margins"])
     for r in served:
         ties = np.flatnonzero(margins[r.rid] <= NEAR_TIE)

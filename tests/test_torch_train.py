@@ -464,9 +464,11 @@ def test_launcher_without_a_card_exits_2(tmp_path, capsys, monkeypatch):
     assert launch_train.main(["--reduced", "--steps", "1",
                               "--ckpt-dir", str(tmp_path)]) == 2
     assert capsys.readouterr().err.startswith("error: ")
-    assert launch_train.main(["--arch", "whisper_small", "--reduced", "--device", "cpu",
-                              "--ckpt-dir", str(tmp_path)]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    for arch, key in (("whisper_small", "enc_frames"), ("llama3_2_vision_90b", "img_embeds")):
+        assert launch_train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                                  "--ckpt-dir", str(tmp_path)]) == 2
+        err = capsys.readouterr().err
+        assert err.startswith("error: ") and repr(key) in err, err
 
 
 def test_launcher_trains_a_moe_config_on_the_cpu(tmp_path, capsys):
