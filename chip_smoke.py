@@ -31,7 +31,10 @@ Phases, one JSON line each on stdout:
               sources and src -1 inside groups, int32 adds that wrap; 0, 1,
               31, 33 and 200,003 edges; each also from one edge in, off the
               16-byte grid), each through the wrapper and planned for 1 and
-              3 resident blocks (four edges a lane, many rounds a warp).  SpMV, bit for bit: the real
+              3 resident blocks (four edges a lane, many rounds a warp);
+              a quarter of the destinations outside [0, n) (-5, -1, n, n + 7),
+              random and inside runs of equal dst, f32 and int32.  SpMV,
+              bit for bit: the real
               ``lj`` PageRank ELL layout (31 wide, the tiled path) and
               the ``tw`` one (52 wide, the wide-row path).  Attention, within the
               reference's tolerances (2e-5 in f32, 2e-2 in bf16; TF32 is
@@ -195,10 +198,16 @@ Phases, one JSON line each on stdout:
 13. train_golden -- the LM training path in f32 on the card (TF32 off)
               against ``tests/data/torch_golden_train.json`` (written from
               the JAX reference): ``qwen3_0_6b.reduced()`` and qwen3 at full
-              width cut to 2 layers, 3 ``make_train_step`` steps each on
-              seeded ``SyntheticLM`` batches; losses and grad norms at rtol
-              1e-4, the weights' leaf sums, norms and change norms at the
-              file's tolerances.
+              width cut to 2 layers, the ``reduced()`` qwen2-moe, arctic,
+              jamba, rwkv6, whisper and llama-vision (the last two with the
+              stub front ends' inputs from the file's ``context_seed``), and
+              qwen2-moe at full width cut to 1 layer and a 1,024-token vocab
+              (60 experts; ``card_only``: the CPU suite skips it), 3
+              ``make_train_step`` steps each on seeded ``SyntheticLM``
+              batches; losses and grad norms at the file's rtol (or a
+              golden's own), the weights' leaf sums, norms and change norms
+              at its tolerances.  Printed: each MoE golden's smallest router
+              top-k gap, as the reference recorded it.
 14. train  -- the LM training path at full size: ``qwen3_0_6b`` at its
               published widths and depth in bf16, weights from ``Model.init``
               with a seeded generator on the card, 30 steps of 8 x 1,024
@@ -219,24 +228,59 @@ Phases, one JSON line each on stdout:
               card's idle share and its ms by kind of kernel and heaviest
               kernels over 3 steady steps (``torch.profiler``),
               the checkpoint's bytes, save and restore seconds.
-15. train_ft -- the fault path at full width cut to 2 layers (4 x 256
-              tokens, 12 steps, sync checkpoints every 4 steps, ~1.9 GB
-              each, under ``build/``): failures injected at steps 5 and 9
-              must end with parameters and moments bit-equal to a clean run.
+15. train_ft -- the fault path at full width: qwen3 cut to 2 layers (4 x
+              256 tokens, 12 steps, sync checkpoints every 4 steps, ~1.9 GB
+              each, under ``build/``), then qwen2-moe cut to 1 layer and an
+              8,192-token vocab (60 experts of (2,048, 1,408), bf16 stored
+              as ``uint16``; ~6 GB a checkpoint): failures injected at steps
+              5 and 9 must end with parameters and moments bit-equal to a
+              clean run (checkpointed at its end only).
               ``torch.use_deterministic_algorithms`` is on for this phase
               only (the embedding's scatter-add backward is otherwise
               atomic); ``CUBLAS_WORKSPACE_CONFIG`` is set before torch
               loads, as cuBLAS reads it once.  Then ``python -m
-              repro_torch.launch.train --layers 2 --steps 4`` as a child, no
-              ``--device`` (the card), must exit 0 (log in
-              ``chiprun_out/train_launch.log``).
-16. kernels -- one line per ported kernel: launches on its path (and in
+              repro_torch.launch.train --layers 2 --steps 4`` and ``--arch
+              qwen2_moe_a2_7b --layers 1 --steps 4 --batch 2 --seq 128`` as
+              children, no ``--device`` (the card), must exit 0, the second
+              printing its ``moe aux`` line (logs in
+              ``chiprun_out/train_launch{,_moe}.log``).
+16. train_families -- the MoE, SSM, hybrid, encoder-decoder and
+              vision-language families trained at their published widths in
+              bf16 (``FAMILY_TRAIN``), cut in depth only, one model at a
+              time: ``qwen2_moe_a2_7b`` 4 of 24 layers (4 x 1,024 tokens),
+              ``rwkv6_1_6b`` all 24 (4 x 256), ``jamba_v0_1_52b`` 2 of 32
+              (mamba + MLP, mamba + MoE; 4 x 256), ``whisper_small`` at its
+              published 12 + 12 layers (8 x 224, 1,500 frames) and
+              ``llama3_2_vision_90b`` one period of 5 layers (4 self + 1
+              cross; 2 x 512, 1,601 patches; m and v in bf16,
+              ``aggressive``), 10 steps each (rwkv6 6: ~8.8 s a step), those
+              between the first and the last through ``make_train_step``:
+              weights from ``Model.init`` seeded on the card, ``SyntheticLM``
+              ids below 8,192, the stub inputs seeded, remat on.  Arctic is
+              reckoned (one layer, 14.07 B parameters, 168.8 GB at 12 B a
+              parameter), not trained.  Checks: every loss finite and the
+              mean of the last 3 below the first 3's; every gradient finite
+              after the first backward, and for whisper and llama-vision no
+              cross-attention or encoder leaf with an all-zero gradient; the
+              MoE aux losses finite; the attention kernel launched 0 times in
+              every training step (``families_train_launches``); each peak
+              under 76 GB.  Printed per config: init s, the median step's
+              seconds and tokens/s, a host-clock split into forward +
+              backward and optimizer, peak GB beside the reckoning
+              (``train_reckoning``), FLOPs from shapes (``train_flops``) and
+              their share of 989 TFLOP/s, kernels a step, the idle share and
+              device ms by kind over 2 steady steps (rwkv6 1;
+              ``torch.profiler`` tracing the card only), the share of
+              (token, slot) pairs the MoE capacity dropped and the last
+              step's aux losses.
+17. kernels -- one line per ported kernel: launches on its path (and in
               the sweep's engines run, ``sweep_launches``, in the sweep
               server's workers, ``served_launches``, in the multi-host
               phase's hosts, ``multihost_launches``, and for attention in
               phase train's steps, ``train_launches`` (0), its serving
-              of the trained weights, ``train_serve_launches``, and phase
-              serve_families' runs, ``families_launches``), its time at
+              of the trained weights, ``train_serve_launches``, phase
+              serve_families' runs, ``families_launches``, and phase
+              train_families' steps, ``families_train_launches`` (0)), its time at
               the path's largest call (CUDA events), its bound, the plain
               version's time and, where one PyTorch call computes the same
               function, that call's time.  ``ms`` is the mean of calls
@@ -384,6 +428,36 @@ TRAIN_SERVE_ROWS = 2  # rows of a batch the trained weights serve
 FT_LAYERS, FT_BATCH, FT_SEQ, FT_STEPS, FT_EVERY = 2, 4, 256, 12, 4
 FT_FAILURES = (5, 9)
 LAUNCH_STEPS = 4
+# phase train_ft's MoE resume: qwen2-moe at full width cut to 1 layer and an
+# 8,192-token vocab (bf16 weights, f32 m and v: a checkpoint is ~6 GB); then
+# the launcher on a MoE config as a child (1 layer, the published vocab)
+FT_MOE_ARCH, FT_MOE_VOCAB = "qwen2_moe_a2_7b", 8192
+LAUNCH_MOE = ("--arch", "qwen2_moe_a2_7b", "--layers", "1", "--steps", "4", "--batch", "2",
+              "--seq", "128")
+# phase train_families: the MoE, SSM, hybrid, encoder-decoder and
+# vision-language families trained at their published widths in bf16, cut
+# in depth only: (arch, layers or None for the published depth, batch, seq,
+# moment dtype, steps).  bf16 weights and gradients with f32 m and v are 12
+# B a parameter: qwen2-moe 4 of 24 layers, 34.9 GB; rwkv6 all 24, 19.0 GB;
+# jamba 2 of 32 (mamba + MLP, mamba + MoE; the 5 layers that reach its
+# attention layer need 86.5 GB), 44.9 GB; whisper 12 + 12 encoder layers,
+# 4.0 GB.  llama-vision keeps m and v in bf16 (``aggressive``), 8 B a
+# parameter: one period, 4 self + 1 cross of 100 layers, 51.0 GB.
+# The last two fields: steps, and steady steps of them profiled
+# (torch.profiler, the card only).  rwkv6's per-token scan under autograd
+# and remat takes ~8.8 s a step on an H100 (700 W): its run is cut to 6
+# steps, 1 profiled, its widths, depth and batch kept.
+FAMILY_TRAIN = (("qwen2_moe_a2_7b", 4, 4, 1024, "float32", 10, 2),
+                ("rwkv6_1_6b", None, 4, 256, "float32", 6, 1),
+                ("jamba_v0_1_52b", 2, 4, 256, "float32", 10, 2),
+                ("whisper_small", None, 8, 224, "float32", 10, 2),
+                ("llama3_2_vision_90b", 5, 2, 512, "bfloat16", 10, 2))
+FAMILY_LOSS_STEPS = 3  # the mean loss of the last 3 steps below the first 3's
+FAMILY_PEAK_LIMIT_GB = 76.0
+# not trained on the card: one layer of arctic is 14.07 B parameters
+# (ArchConfig.param_count), 168.8 GB at 12 B a parameter and 112.6 GB with
+# bf16 moments; it waits for sharding across cards
+FAMILY_UNTRAINED = ("arctic_480b",)
 
 
 def emit(obj: dict) -> None:
@@ -659,13 +733,18 @@ def edge_update_cases(rng) -> dict:
     crossing its edges; sorted by src; every edge to one destination, at
     1,048,579 edges), values (f32 with negative and positive candidates in
     one group; +inf sources and src -1 edges inside groups; int32 near the
-    max, where the add wraps, with int32-max sources) and sizes (0, 1, 31,
-    33, and 200,003 edges: not a multiple of 4)."""
+    max, where the add wraps, with int32-max sources), sizes (0, 1, 31,
+    33, and 200,003 edges: not a multiple of 4) and, with the suffix
+    ``-out``, a quarter of the destinations outside [0, n) (-5, -1, n and
+    n + 7: vertex 0 for the negative ones, dropped edges for the rest),
+    inside runs of equal dst too."""
     import numpy as np
 
     i32max = np.iinfo(np.int32).max
 
     def case(order: str, kind: str, m: int):
+        out_of_range = order.endswith("-out")
+        order = order.removesuffix("-out")
         n = 64 + m // 4
         src = rng.integers(0, n, m).astype(np.int32)
         dst = rng.integers(0, n, m).astype(np.int32)
@@ -687,6 +766,9 @@ def edge_update_cases(rng) -> dict:
             src, dst, delta = src[o], dst[o], delta[o]
         elif order == "one-dst":
             dst = np.full(m, 7, np.int32)
+        if out_of_range:
+            bad = rng.random(m) < 0.25
+            dst[bad] = rng.choice(np.array([-5, -1, n, n + 7], np.int32), int(bad.sum()))
         return src, dst, delta, values
 
     kinds = ("f32-mixed", "f32-masked", "i32-wrap")
@@ -696,6 +778,9 @@ def edge_update_cases(rng) -> dict:
                   for m in (0, 1, 31, 33)})
     cases.update({f"one-dst/{kind}/1048579": case("one-dst", kind, 1_048_579)
                   for kind in ("f32-masked", "i32-wrap")})
+    cases.update({f"{order}/{kind}/200003": case(order, kind, 200_003)
+                  for kind in ("f32-masked", "i32-wrap")
+                  for order in ("random-out", "dst-runs32-out")})
     return cases
 
 
@@ -2675,22 +2760,31 @@ def leaf_stats(tree: dict, init: dict) -> dict:
 def phase_train_golden(dev) -> dict:
     """The training path in f32 on the card against the reference's goldens
     (``tests/data/torch_golden_train.json``): 3 train steps of each config,
-    losses and grad norms at the file's rtol, the weights' leaf sums, norms
-    and change norms at its tolerances."""
+    the stub front ends' inputs from the file's ``context_seed`` where the
+    config needs them, losses and grad norms at the file's rtol (or the
+    golden's own), the weights' leaf sums, norms and change norms at its
+    tolerances.  The MoE goldens' smallest router top-k gap, as the
+    reference recorded it, is printed beside them."""
     import torch
 
     from repro_torch.configs.base import ArchConfig
-    from repro_torch.interop import lm_params_numpy, lm_params_to_numpy, load_lm_params
+    from repro_torch.interop import (
+        context_inputs_numpy,
+        lm_params_numpy,
+        lm_params_to_numpy,
+        load_lm_params,
+    )
     from repro_torch.models import Model
     from repro_torch.train import optimizer as opt
     from repro_torch.train.data import DataConfig, SyntheticLM
     from repro_torch.train.train_step import TrainConfig, make_train_step
 
     golden = json.loads(TRAIN_GOLDEN.read_text())
-    tol = golden["tolerance"]
     t0 = time.perf_counter()
     out = {}
     for g in golden["configs"]:
+        t_config = time.perf_counter()
+        tol = {**golden["tolerance"], **g.get("tolerance", {})}
         cfg = ArchConfig(**g["config"])
         init = lm_params_numpy(cfg, g["weight_seed"])
         model = load_lm_params(Model(cfg), init)
@@ -2699,9 +2793,11 @@ def phase_train_golden(dev) -> dict:
         step = make_train_step(model, tcfg)
         data = SyntheticLM(DataConfig(vocab=cfg.vocab, global_batch=golden["batch"],
                                       seq_len=golden["seq"], seed=g["data_seed"]))
+        context = (context_inputs_numpy(cfg, golden["batch"], g["context_seed"])
+                   if "context_seed" in g else {})
         worst = dict.fromkeys(("loss", "grad_norm", "lr"), 0.0)
         for i, want in enumerate(g["steps"]):
-            state, got = step(state, data.batch(i))
+            state, got = step(state, {**data.batch(i), **context})
             for key in worst:
                 worst[key] = max(worst[key], abs(float(got[key]) - want[key]) / abs(want[key]))
         check(worst["loss"] <= tol["loss_rtol"] and worst["grad_norm"] <= tol["grad_norm_rtol"]
@@ -2714,44 +2810,49 @@ def phase_train_golden(dev) -> dict:
                   and abs(got["delta_norm"] - want["delta_norm"])
                   <= tol["delta_norm_rtol"] * want["delta_norm"],
                   f"train golden {g['name']}: leaf {key} {got} != {want}")
-        out[g["name"]] = dict(worst_rel_err=worst, leaves=len(stats))
-        del model, state
+        out[g["name"]] = dict(worst_rel_err=worst, leaves=len(stats),
+                              context=sorted(context) or None,
+                              router_min_gap=g.get("router_min_gap"),
+                              card_only=g.get("card_only", False),
+                              tolerance=g.get("tolerance"),
+                              seconds=round(time.perf_counter() - t_config, 3))
+        del model, state, step, init
     torch.cuda.empty_cache()
-    emit(dict(phase="train_golden", configs=out, tolerance=tol, dtype="float32",
-              seconds=round(time.perf_counter() - t0, 3)))
+    emit(dict(phase="train_golden", configs=out, tolerance=golden["tolerance"],
+              dtype="float32", seconds=round(time.perf_counter() - t0, 3)))
     return out
 
 
-def device_profile(fn, reps: int) -> dict:
-    """The card over ``reps`` calls of ``fn()`` (after one warm-up), by
-    ``torch.profiler``: its idle share (one less the union of the device
-    activities' intervals over the window from the first event to the last),
-    its ms a call by kind of kernel (matmuls, softmax, the rest) and its
-    heaviest kernels."""
+def device_profile(fn, reps: int, warmup: bool = True, host: bool = True) -> dict:
+    """The card over ``reps`` calls of ``fn()`` (after one warm-up unless
+    ``warmup`` is false), by ``torch.profiler``: its idle share (one less
+    the union of the device activities' intervals over the window from the
+    first event to the last), its ms a call by kind of kernel (matmuls,
+    softmax, the rest) and its heaviest kernels.  With ``host`` false only
+    the card is traced, so the window runs from its first activity to its
+    last, and the device activities are read from the profiler's raw
+    events (``kineto_results``): built into ``FunctionEvent``s, a trace of
+    ~280,000 kernels a call (rwkv6's training step) took 53 s to read."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    if not host:
+        return _device_spans_profile(prof.profiler.kineto_results.events(), reps)
     events = prof.events()
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
                    if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
     if not spans:
         return dict(idle_share=None, note="not measured: the trace holds no device activity")
     window = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events))
-    busy, cur_start, cur_end = 0.0, *spans[0]
-    for start, end in spans[1:]:
-        if start > cur_end:
-            busy += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    busy += cur_end - cur_start
     ms = {}  # the kernels' own rows (the ops that launch them carry their time too)
     for evt in prof.key_averages():
         if getattr(evt, "device_type", None) != DeviceType.CUDA:
@@ -2761,6 +2862,44 @@ def device_profile(fn, reps: int) -> dict:
             us = evt.self_cuda_time_total
         if us > 0:
             ms[evt.key[:90]] = ms.get(evt.key[:90], 0.0) + us / reps / 1e3
+    return _profile_summary(_union_length(spans), window, len(spans), reps, ms)
+
+
+def _union_length(spans: list) -> float:
+    """The length of the union of sorted (start, end) intervals."""
+    busy, cur_start, cur_end = 0.0, *spans[0]
+    for start, end in spans[1:]:
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    return busy + cur_end - cur_start
+
+
+def _device_spans_profile(raw_events, reps: int) -> dict:
+    """``device_profile``'s numbers from the profiler's raw events of a
+    trace of the card alone: each device activity's name, start and end
+    (in us, as ``FunctionEvent``s hold them), the window from the first
+    start to the last end."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+            for e in raw_events if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0]
+    if not rows:
+        return dict(idle_share=None, note="not measured: the trace holds no device activity")
+    spans = sorted((start, end) for _, start, end in rows)
+    window = max(end for _, end in spans) - spans[0][0]
+    ms: dict = {}
+    for name, start, end in rows:
+        ms[name[:90]] = ms.get(name[:90], 0.0) + (end - start) / reps / 1e3
+    return _profile_summary(_union_length(spans), window, len(spans), reps, ms)
+
+
+def _profile_summary(busy: float, window: float, n_spans: int, reps: int, ms: dict) -> dict:
+    """Idle share, busy and window ms a call, device events a call, and the
+    kernels' ms a call by kind (matmul, softmax, the rest) and the heaviest,
+    from the union of the device intervals (us) and each kernel's ms."""
     kinds = dict.fromkeys(("matmul", "softmax", "other"), 0.0)
     for name, t in ms.items():
         low = name.lower()
@@ -2769,24 +2908,59 @@ def device_profile(fn, reps: int) -> dict:
         kinds[kind] += t
     top = sorted(ms.items(), key=lambda kv: -kv[1])[:10]
     return dict(idle_share=1.0 - busy / window, busy_ms=busy / 1e3 / reps,
-                window_ms=window / 1e3 / reps, device_events=len(spans) // reps, reps=reps,
+                window_ms=window / 1e3 / reps, device_events=n_spans // reps, reps=reps,
                 device_ms_by_kind=kinds, top_kernels_ms=dict(top))
 
 
 def train_flops(cfg, batch: int, seq: int) -> dict:
-    """Operations of one train step from shapes: 6 x the matmul parameters
-    (the layers' and the unembedding's) x tokens, plus causal attention's
-    QKᵀ and PV forward and backward (6·B·nq·hd·S² a layer); remat's
-    recompute is not counted."""
-    from repro_torch.models.model import padded_vocab
+    """Operations of one train step from shapes, a multiply-add as two: 6 x
+    the weight-matmul parameters a token passes through x tokens, plus the
+    attention scores' QKᵀ and PV forward and backward.  The parameters a
+    token uses: each layer's mixer (attention's q/k/v/o, a cross layer's
+    q/o for the text and k/v for each context token; mamba's and rwkv's
+    projections) and ffn (the dense MLP; a MoE layer's router, its top-k
+    routed experts, its shared or dense MLP; rwkv's channel mix), the
+    unembedding, and whisper's encoder layers for each of its frames.
+    Scores: 6·B·nq·hd·S² a causal layer (the half of the matrix it needs),
+    12·B·nq·hd·Sq·Sk a non-causal encoder or cross-attention layer.  The
+    recurrent scans' elementwise work, the routing and remat's recompute
+    are not counted; nor are the capacity slots an expert computes empty."""
+    from repro_torch.models.model import context_input, padded_vocab
+    from repro_torch.models.ssm import RWKV_DECAY_LORA, mamba_dims
+    from repro_torch.models.transformer import layer_program
 
     d, hd, nq, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    per_layer = d * nq * hd + 2 * d * nkv * hd + nq * hd * d + 3 * d * cfg.d_ff
-    matmul_params = cfg.n_layers * per_layer + d * padded_vocab(cfg.vocab)
-    dense = 6 * matmul_params * batch * seq
-    attn = 6 * batch * nq * hd * seq * seq * cfg.n_layers
+    q_o, k_v = 2 * d * nq * hd, 2 * d * nkv * hd
+    eff = cfg.expert_d_ff or cfg.d_ff
+    d_in, dt_rank = mamba_dims(cfg)
+    mixer_params = {"attn": q_o + k_v, "attn_nc": q_o + k_v, "cross": q_o,
+                    "self_cross": 2 * q_o + k_v,
+                    "mamba": 2 * d * d_in + d_in * (dt_rank + 2 * cfg.ssm_d_state)
+                    + dt_rank * d_in + d_in * d,
+                    "rwkv": 5 * d * d + 2 * d * RWKV_DECAY_LORA}
+    ffn_params = {"mlp": 3 * d * cfg.d_ff, "rwkv_ffn": 2 * d * cfg.d_ff + d * d,
+                  "moe": d * cfg.n_experts + (cfg.top_k + cfg.n_shared_experts) * 3 * d * eff
+                  + (3 * d * cfg.d_ff if cfg.dense_residual else 0)}
+    ctx = context_input(cfg)
+    ctx_len = ctx[1] if ctx else 0
+    program = layer_program(cfg)
+    matmul_params = sum(mixer_params[p.mixer] + ffn_params[p.ffn] for p in program)
+    matmul_params += d * padded_vocab(cfg.vocab)
+    tokens, ctx_tokens = batch * seq, batch * ctx_len
+    dense = 6 * matmul_params * tokens
+    attn = 0
+    for p in program:
+        if p.mixer in ("attn", "self_cross"):
+            attn += 6 * batch * nq * hd * seq * seq
+        if p.mixer in ("cross", "self_cross"):
+            dense += 6 * k_v * ctx_tokens  # the context's keys and values
+            attn += 12 * batch * nq * hd * seq * ctx_len
+    encoder = 0
+    if cfg.n_enc_layers:
+        encoder = cfg.n_enc_layers * (6 * (mixer_params["attn_nc"] + ffn_params["mlp"])
+                                      * ctx_tokens + 12 * batch * nq * hd * ctx_len ** 2)
     return dict(matmul_params=matmul_params, dense_flops=dense, attention_flops=attn,
-                flops=dense + attn)
+                encoder_flops=encoder, flops=dense + attn + encoder)
 
 
 def phase_train(dev, card: str) -> dict:
@@ -2954,34 +3128,241 @@ def phase_train(dev, card: str) -> dict:
     return info
 
 
-def phase_train_ft(dev, card: str) -> dict:
-    """The fault path at full width cut to 2 layers: failures injected at
-    steps 5 and 9 with sync checkpoints every 4 steps must end bit-equal to
-    a clean run (deterministic algorithms on, for this phase only); then the
-    launcher as a child process on the card."""
+def train_reckoning(model, batch: int, seq: int, ocfg) -> dict:
+    """The memory a train step needs from shapes, in GB: weights and
+    gradients (each leaf's own dtype: the router, SSM decays and mixes are
+    f32), m and v (``ocfg``'s dtypes), the f32 logits and their gradient,
+    and the larger of two transients on the largest leaf: the optimizer's
+    f32 temporaries on a slice of ``UPDATE_CHUNK`` elements (nine at once)
+    and ``global_norm``'s widened square of its gradient (two).  An upper
+    bound for the step, as the logits are gone before the update."""
+    from repro_torch.train.optimizer import UPDATE_CHUNK
+
+    params = list(model.parameters())
+    n = sum(p.numel() for p in params)
+    weights = sum(p.numel() * p.element_size() for p in params)
+    m_bytes = 2 if ocfg.moment_dtype == "bfloat16" else 4
+    v_bytes = m_bytes if ocfg.aggressive else 4
+    largest = max(p.numel() for p in params)
+    out = dict(params=n, weights_gb=weights / 1e9, grads_gb=weights / 1e9,
+               moments_gb=n * (m_bytes + v_bytes) / 1e9,
+               logits_gb=2 * batch * seq * model.vocab_padded * 4 / 1e9,
+               largest_leaf=largest,
+               transient_gb=max(9 * 4 * min(largest, UPDATE_CHUNK), 2 * 4 * largest) / 1e9)
+    out["reckoned_gb"] = sum(v for k, v in out.items() if k.endswith("_gb"))
+    return out
+
+
+def moe_drop_share(model, batch: dict) -> float | None:
+    """The share of (token, slot) pairs that the MoE layers' capacity
+    dropped in one forward pass of the training path over ``batch`` (no
+    gradient), or None without experts: ``moe.route``'s kept mask,
+    recorded."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+
+    if not model.cfg.n_experts:
+        return None
+    kept, route = [], moe_mod.route
+
+    def recording(*args, **kw):
+        r = route(*args, **kw)
+        kept.append(r.keep)
+        return r
+
+    moe_mod.route = recording
+    try:
+        with torch.no_grad():
+            model.train_forward(batch)
+    finally:
+        moe_mod.route = route
+    return 1.0 - float(sum(k.sum() for k in kept)) / sum(k.numel() for k in kept)
+
+
+def phase_train_families(dev, card: str) -> dict:
+    """The MoE, SSM, hybrid, encoder-decoder and vision-language families
+    trained at their published widths in bf16 (``FAMILY_TRAIN``), one model
+    at a time: seeded ``Model.init`` on the card, ``SyntheticLM`` batches
+    with ids below ``TRAIN_DATA_VOCAB`` and the stub front ends' inputs,
+    remat on.  The steps between the first and the last run through
+    ``make_train_step``; those two take its three calls one by one, to
+    hold the first gradients and to time the last one's parts.  Arctic is
+    reckoned, not trained (``FAMILY_UNTRAINED``)."""
     import dataclasses
+    import gc
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.interop import context_inputs_numpy
+    from repro_torch.kernels import _platform
+    from repro_torch.models import Model
+    from repro_torch.models.model import context_input
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    t_phase = time.perf_counter()
+    out = {}
+    for arch in FAMILY_UNTRAINED:
+        cfg = dataclasses.replace(get_arch(arch), n_layers=1)
+        n = cfg.param_count()
+        out[arch] = dict(arch=arch, trained=False, n_layers=1, params=n,
+                         f32_moments_gb=12 * n / 1e9, bf16_moments_gb=8 * n / 1e9)
+        emit(dict(phase="train_families", card=card, **{
+            k: round(v, 6) if isinstance(v, float) else v for k, v in out[arch].items()}))
+    for arch, layers, batch_size, seq, moments, steps, profiled in FAMILY_TRAIN:
+        base = get_arch(arch)
+        cfg = dataclasses.replace(base, n_layers=layers) if layers else base
+        ocfg = opt.OptimizerConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=steps,
+                                   moment_dtype=moments, aggressive=moments == "bfloat16")
+        t0 = time.perf_counter()
+        model = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+        params = dict(model.named_parameters())
+        state = opt.init(ocfg, params)
+        source = SyntheticLM(DataConfig(vocab=TRAIN_DATA_VOCAB, global_batch=batch_size,
+                                        seq_len=seq, seed=2026))
+        context = {k: torch.as_tensor(v, device=dev) for k, v in
+                   context_inputs_numpy(cfg, batch_size, FAMILY_STUB_SEED).items()}
+
+        def batch_at(i):
+            return {**{k: torch.as_tensor(v, device=dev) for k, v in source.batch(i).items()},
+                    **context}
+
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        reckoning = train_reckoning(model, batch_size, seq, ocfg)
+        # the leaves that read the context: the encoder's, a cross layer's
+        # attention, a self_cross layer's cross-attention and its norm
+        prefixes = ["enc."]
+        for i, spec in enumerate(model.program):
+            if spec.mixer == "cross":
+                prefixes.append(f"blocks.{i}.attn.")
+            elif spec.mixer == "self_cross":
+                prefixes += [f"blocks.{i}.cross.", f"blocks.{i}.norm_cross."]
+        watched = [n for n in params if n.startswith(tuple(prefixes))]
+        check(bool(watched) == bool(context), f"{arch}: context leaves {watched[:5]}")
+
+        def split_step(batch, first: bool = False) -> tuple:
+            """One train step as ``make_train_step``'s, its forward +
+            backward and its update timed apart on the host's clock; the
+            first also holds its gradients: all finite, and no
+            context leaf's all zero."""
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, aux = model.loss(batch)
+            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+            torch.cuda.synchronize()
+            fwd_bwd = time.perf_counter() - t
+            if first:
+                bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())]
+                check(not bad, f"{arch}: non-finite gradients after the first backward: "
+                      f"{bad[:5]}")
+                zero = [n for n in watched if not bool(grads[n].ne(0).any())]
+                check(not zero, f"{arch}: cross-attention or encoder leaves with a zero "
+                      f"gradient: {zero[:5]}")
+            t = time.perf_counter()
+            _, opt_metrics = opt.update(ocfg, grads, state, params)
+            torch.cuda.synchronize()
+            metrics = {k: float(v.detach()) for k, v in {"loss": loss, **aux,
+                                                         **opt_metrics}.items()}
+            return fwd_bwd, time.perf_counter() - t, metrics
+
+        # step 0 holds the first gradients, steps 1 .. n-2 run through
+        # make_train_step, the last is split into forward + backward and
+        # update; then steady steps profiled and a forward for the drops
+        torch.cuda.reset_peak_memory_stats()
+        _platform.reset_launches()
+        step = make_train_step(model, TrainConfig(optimizer=ocfg))
+        losses, step_s = [], []
+        for i in range(steps):
+            batch = batch_at(i)
+            if i in (0, steps - 1):
+                fwd_bwd_s, opt_s, metrics = split_step(batch, first=i == 0)
+                step_s.append(fwd_bwd_s + opt_s)
+            else:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t)
+            losses.append(float(metrics["loss"]))
+        last = {k: float(v) for k, v in metrics.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(all(np.isfinite(losses)), f"{arch}: losses {losses}")
+        first = float(np.mean(losses[:FAMILY_LOSS_STEPS]))
+        final = float(np.mean(losses[-FAMILY_LOSS_STEPS:]))
+        check(final < first, f"{arch}: the loss did not fall: first {first}, last {final}")
+        aux = {k: last[k] for k in ("moe_lb_loss", "moe_z_loss")} if cfg.n_experts else {}
+        check(all(np.isfinite(list(aux.values()))), f"{arch}: MoE aux losses {aux}")
+        check(peak_gb < FAMILY_PEAK_LIMIT_GB, f"{arch}: peak {peak_gb:.2f} GB")
+        t = time.perf_counter()
+        idle = device_profile(lambda: step(state, batch), reps=profiled, warmup=False,
+                              host=False)
+        profile_s = time.perf_counter() - t
+        dropped = moe_drop_share(model, batch)
+        # none in any step: the split, timed and profiled ones
+        launches = _platform.launch_counts()["attention"]
+        check(launches == 0, f"{arch}: the attention kernel launched {launches} times "
+              f"in training")
+
+        median_s = statistics.median(step_s[1:])  # the first step warms up
+        flops = train_flops(cfg, batch_size, seq)
+        tokens = batch_size * seq
+        info = dict(arch=arch, trained=True, dtype=cfg.dtype, n_layers=cfg.n_layers,
+                    n_enc_layers=cfg.n_enc_layers, batch=batch_size, seq=seq,
+                    context=context_input(cfg), moment_dtype=moments,
+                    aggressive=ocfg.aggressive, steps=steps, remat=cfg.remat, init_s=init_s,
+                    step_s=step_s, median_step_s=median_s, tokens_per_s=tokens / median_s,
+                    fwd_bwd_s=fwd_bwd_s, optimizer_s=opt_s, losses=losses,
+                    loss_first3=first, loss_last3=final, peak_gb=peak_gb, **reckoning,
+                    **flops,
+                    flop_share_of_bf16_peak=flops["flops"] / median_s / PEAK_BF16_OPS_PER_S,
+                    train_launches=launches, moe_aux_last=aux or None,
+                    moe_dropped_share=dropped, watched_leaves=len(watched),
+                    profile_s=profile_s, **idle)
+        if idle.get("busy_ms") is not None:
+            info["idle_share_of_median_step"] = 1.0 - idle["busy_ms"] / 1e3 / median_s
+        emit(dict(phase="train_families", card=card, **{
+            k: round(v, 6) if isinstance(v, float) else v for k, v in info.items()
+            if k not in ("step_s", "top_kernels_ms")}))
+        out[arch] = info
+        del model, params, state, step, batch, context
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = sum(f.get("train_launches", 0) for f in out.values())
+    emit(dict(phase="train_families", configs=len(out), families_train_launches=launches,
+              seconds=round(time.perf_counter() - t_phase, 3)))
+    out["families_train_launches"] = launches
+    return out
+
+
+def supervised_resume(dev, cfg, source, label: str) -> dict:
+    """``cfg`` through ``run_supervised`` for ``FT_STEPS`` steps with sync
+    checkpoints every ``FT_EVERY`` steps (under ``build/``) and failures
+    injected at ``FT_FAILURES``, then again with no failure and a checkpoint
+    only at the end: parameters and moments must be bit-equal.  Run under
+    deterministic algorithms."""
     import shutil
 
     import torch
 
-    from repro_torch.configs.base import get_arch
     from repro_torch.models import Model
     from repro_torch.train import optimizer as opt
     from repro_torch.train.checkpoint import Checkpointer
-    from repro_torch.train.data import DataConfig, SyntheticLM
     from repro_torch.train.fault_tolerance import SupervisorConfig, run_supervised
     from repro_torch.train.train_step import TrainConfig, make_train_step
 
-    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=FT_LAYERS)
     tcfg = TrainConfig(optimizer=opt.OptimizerConfig(
         lr=TRAIN_LR, warmup_steps=2, total_steps=FT_STEPS))
-    source = SyntheticLM(DataConfig(vocab=cfg.vocab, global_batch=FT_BATCH,
-                                    seq_len=FT_SEQ, seed=7))
 
-    def run(label: str, failures: set):
+    def run(run_label: str, failures: set, every: int):
         model = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
         state = opt.init(tcfg.optimizer, dict(model.named_parameters()))
-        directory = ROOT / "build" / f"train_ft_{label}"
+        directory = ROOT / "build" / f"train_ft_{label}_{run_label}"
         shutil.rmtree(directory, ignore_errors=True)
         ckpt = Checkpointer(str(directory), keep=2)
         saves: list = []
@@ -3004,61 +3385,99 @@ def phase_train_ft(dev, card: str) -> dict:
         _, state, history = run_supervised(
             train_step=make_train_step(model, tcfg), params=model, opt_state=state,
             data_source=source, n_steps=FT_STEPS, ckpt=ckpt,
-            cfg=SupervisorConfig(checkpoint_every=FT_EVERY, async_checkpoint=False),
+            cfg=SupervisorConfig(checkpoint_every=every, async_checkpoint=False),
             fail_at=fail_at, log_every=0, log=log.append)
         wall = time.perf_counter() - t0
         shutil.rmtree(directory, ignore_errors=True)
         return model, state, history, dict(wall_s=wall, saves=saves, log=log)
 
-    t0 = time.perf_counter()
     torch.use_deterministic_algorithms(True)
     try:
         failures = set(FT_FAILURES)
-        model, state, history, faulted = run("faults", failures)
-        check(not failures, f"failures {failures} were not injected")
+        model, state, history, faulted = run("faults", failures, FT_EVERY)
+        check(not failures, f"{label}: failures {failures} were not injected")
         steps = [s for s, _ in history]
         check(steps[-1] == FT_STEPS and set(range(1, FT_STEPS + 1)) <= set(steps),
-              f"supervised steps {steps}")
-        clean_model, clean_state, _, clean = run("clean", set())
+              f"{label}: supervised steps {steps}")
+        clean_model, clean_state, clean_history, clean = run("clean", set(), FT_STEPS)
     finally:
         torch.use_deterministic_algorithms(False)
     for (name, a), b in zip(model.named_parameters(), clean_model.parameters()):
-        check(torch.equal(a, b), f"train_ft: parameter {name} differs from the clean run")
+        check(torch.equal(a, b), f"{label}: parameter {name} differs from the clean run")
     check(int(state["step"]) == int(clean_state["step"]) == FT_STEPS,
-          f"train_ft: steps {int(state['step'])} and {int(clean_state['step'])}")
+          f"{label}: steps {int(state['step'])} and {int(clean_state['step'])}")
     for moment in ("m", "v"):
         for name, a in state[moment].items():
             check(torch.equal(a, clean_state[moment][name]),
-                  f"train_ft: moment {moment} of {name} differs from the clean run")
+                  f"{label}: moment {moment} of {name} differs from the clean run")
     restarts = sum(1 for line in faulted["log"] if "-> restart" in line)
-    check(restarts == len(FT_FAILURES), f"train_ft: {restarts} restarts: {faulted['log']}")
-    ckpt_bytes = faulted["saves"][0]["bytes"]
-    del model, state, clean_model, clean_state
-    torch.cuda.empty_cache()
-
-    # the launcher on the card, no --device
-    launch_dir = ROOT / "build" / "train_launch_ckpt"
-    shutil.rmtree(launch_dir, ignore_errors=True)
-    t = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--layers", str(FT_LAYERS),
-         "--steps", str(LAUNCH_STEPS), "--ckpt-dir", str(launch_dir)],
-        cwd=ROOT, env=serve_env(), capture_output=True, text=True, timeout=600)
-    launch_s = time.perf_counter() - t
-    shutil.rmtree(launch_dir, ignore_errors=True)
-    OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "train_launch.log").write_text(proc.stdout + proc.stderr)
-    check(proc.returncode == 0, f"the launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
-    check(f"done: {LAUNCH_STEPS} steps" in proc.stdout and "device=cuda" in proc.stdout,
-          f"the launcher printed {proc.stdout[-1000:]}")
-    info = dict(arch=cfg.arch, n_layers=FT_LAYERS, batch=FT_BATCH, seq=FT_SEQ,
-                steps=FT_STEPS, checkpoint_every=FT_EVERY, failures=list(FT_FAILURES),
-                restarts=restarts, checkpoint_bytes=ckpt_bytes,
+    check(restarts == len(FT_FAILURES), f"{label}: {restarts} restarts: {faulted['log']}")
+    info = dict(arch=cfg.arch, n_layers=cfg.n_layers, vocab=cfg.vocab,
+                params=sum(p.numel() for p in model.parameters()),
+                batch=source.cfg.global_batch, seq=source.cfg.seq_len, steps=FT_STEPS,
+                checkpoint_every=FT_EVERY, failures=list(FT_FAILURES), restarts=restarts,
+                checkpoint_bytes=faulted["saves"][0]["bytes"],
                 saves_faulted=len(faulted["saves"]), saves_clean=len(clean["saves"]),
                 save_s=[s["snapshot_s"] + s["write_s"] for s in faulted["saves"]],
                 faulted_wall_s=faulted["wall_s"], clean_wall_s=clean["wall_s"],
-                launcher_s=launch_s, launcher_done=[line for line in proc.stdout.splitlines()
-                                                    if line.startswith("done:")],
+                loss_last=clean_history[-1][1])
+    del model, state, clean_model, clean_state
+    torch.cuda.empty_cache()
+    return info
+
+
+def launch_child(label: str, *args: str) -> dict:
+    """``python -m repro_torch.launch.train *args`` as a child on the card
+    (no ``--device``), its checkpoints under ``build/``, its log in
+    ``chiprun_out/<label>.log``; it must exit 0 and print ``done:``."""
+    import shutil
+
+    launch_dir = ROOT / "build" / f"{label}_ckpt"
+    shutil.rmtree(launch_dir, ignore_errors=True)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *args, "--ckpt-dir",
+         str(launch_dir)], cwd=ROOT, env=serve_env(), capture_output=True, text=True,
+        timeout=600)
+    seconds = time.perf_counter() - t
+    shutil.rmtree(launch_dir, ignore_errors=True)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / f"{label}.log").write_text(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f"{label}: the launcher exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    check("done: " in proc.stdout and "device=cuda" in proc.stdout,
+          f"{label}: the launcher printed {proc.stdout[-1000:]}")
+    return dict(args=list(args), seconds=seconds, stdout=[
+        line for line in proc.stdout.splitlines() if line.startswith(("done:", "moe aux"))])
+
+
+def phase_train_ft(dev, card: str) -> dict:
+    """The fault path at full width: qwen3 cut to 2 layers, then qwen2-moe
+    cut to 1 layer and an 8,192-token vocab (the experts in the
+    checkpoints); failures injected at steps 5 and 9 with sync checkpoints
+    every 4 steps must end bit-equal to a clean run (deterministic
+    algorithms on, for this phase only).  Then the launcher as a child
+    process on the card, on qwen3 and on qwen2-moe (its MoE aux line)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=FT_LAYERS)
+    dense = supervised_resume(dev, cfg, SyntheticLM(DataConfig(
+        vocab=cfg.vocab, global_batch=FT_BATCH, seq_len=FT_SEQ, seed=7)), "dense")
+    moe_cfg = dataclasses.replace(get_arch(FT_MOE_ARCH), n_layers=1, vocab=FT_MOE_VOCAB)
+    moe = supervised_resume(dev, moe_cfg, SyntheticLM(DataConfig(
+        vocab=FT_MOE_VOCAB, global_batch=FT_BATCH, seq_len=FT_SEQ, seed=7)), "moe")
+    launcher = launch_child("train_launch", "--layers", str(FT_LAYERS),
+                            "--steps", str(LAUNCH_STEPS))
+    check(f"done: {LAUNCH_STEPS} steps" in launcher["stdout"][0],
+          f"the launcher printed {launcher['stdout']}")
+    launcher_moe = launch_child("train_launch_moe", *LAUNCH_MOE)
+    check(any(line.startswith("moe aux, last step: moe_lb_loss") for line in
+              launcher_moe["stdout"]), f"the MoE launcher printed {launcher_moe['stdout']}")
+    info = dict(dense, moe=moe, launcher=launcher, launcher_moe=launcher_moe,
                 seconds=time.perf_counter() - t0)
     emit(dict(phase="train_ft", card=card, bit_equal=True, **{
         k: round(v, 6) if isinstance(v, float) else v for k, v in info.items()}))
@@ -3237,7 +3656,11 @@ def main() -> None:
     # 15. the fault path at full width, bit-equal to a clean run; the launcher
     train_ft = phase_train_ft(dev, smi)
 
-    # 16. kernel timing at each path's largest call
+    # 16. the MoE, SSM, hybrid, encoder-decoder and vision-language families
+    # trained at full width
+    train_families = phase_train_families(dev, smi)
+
+    # 17. kernel timing at each path's largest call
     timing = {"dram_timing": phase_kernel_timing(dev, info["batch"]),
               "edge_update": phase_edge_update_timing(
                   device_info["largest"]["edge_update"][1], device_info["foregraph_call"]),
@@ -3260,8 +3683,8 @@ def main() -> None:
         dict(card=smi, scenarios=rows, device_pairs=device_rows, sweep=sweep,
              search=search, sweep_server=sweep_server, multihost=multihost,
              serve_golden=serve_golden, serve=serve, serve_families=families,
-             train_golden=train_golden,
-             train=train, train_ft=train_ft, kernel_timing=timing, attention_sass=sass),
+             train_golden=train_golden, train=train, train_ft=train_ft,
+             train_families=train_families, kernel_timing=timing, attention_sass=sass),
         indent=1) + "\n")
 
     replaces = {"dram_timing": "src/repro/kernels/dram_timing/dram_timing.py:120",
@@ -3281,6 +3704,7 @@ def main() -> None:
         **({"train_launches": train["train_launches"],
             "train_serve_launches": train["serve_launches"],
             "families_launches": families_launches,
+            "families_train_launches": train_families["families_train_launches"],
             "encoder_call": {key: timing[name]["encoder_call"][key] for key in (
                 "shape", "ms", "graph_ms", "bound_ms", "bound_by", "library_ms",
                 "graph_library_ms", "plain_ms", "max_abs_err")}}

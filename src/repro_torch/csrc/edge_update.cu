@@ -5,7 +5,9 @@
 // For every edge e with src[e] >= 0 whose source value sv = values[src[e]]
 // is not the sentinel, out[dst[e]] = min(out[dst[e]], sv + delta[e]);
 // out starts at the sentinel (+inf for f32, INT_MAX for int32), so a
-// vertex without a live in-edge keeps it.
+// vertex without a live in-edge keeps it.  dst is taken as the reference
+// takes it: a negative dst is vertex 0, and an edge with dst >= n is
+// dropped.
 //
 // What bounds it on this card: bytes.  Each edge reads src, dst and delta
 // once (12 B) and each vertex is read once from values and written once to
@@ -126,16 +128,30 @@ struct Keys<int> {
   __device__ static void apply(int* at, K k) { atomicMin(at, k); }
 };
 
+// A loaded edge's dst as the reference takes it (repro/kernels/
+// edge_update/ref.py: segment_min over max(dst, 0), n segments): below 0
+// it is vertex 0; from n on the edge is dropped, as a skipped edge (src
+// -1) whose dst, clamped to n - 1, is never used as an address.
+__device__ __forceinline__ void take_dst(int& s, int& d, long long n) {
+  if (d >= n) {
+    s = -1;
+    d = static_cast<int>(n - 1);
+  } else if (d < 0) {
+    d = 0;
+  }
+}
+
 // A lane's P consecutive edges from e: one 16-byte load an array when P is
 // 4, ``vec`` (the three arrays 16-byte aligned) and the edges end by
 // ``end``; else one load an edge, and past ``end`` an edge is (src -1,
-// dst -1).
+// dst -1).  Every loaded dst goes through take_dst, so each dst lies in
+// [0, n) but past the end.
 template <typename T, int P>
 __device__ __forceinline__ void load_edges(const int* __restrict__ src,
                                            const int* __restrict__ dst,
                                            const T* __restrict__ delta, long long e,
-                                           long long end, bool vec, int (&s)[P], int (&d)[P],
-                                           T (&dl)[P]) {
+                                           long long end, long long n, bool vec, int (&s)[P],
+                                           int (&d)[P], T (&dl)[P]) {
   if constexpr (P == 4) {
     if (vec && e + P <= end) {
       const int4 a = *reinterpret_cast<const int4*>(src + e);
@@ -145,6 +161,8 @@ __device__ __forceinline__ void load_edges(const int* __restrict__ src,
       d[0] = b.x, d[1] = b.y, d[2] = b.z, d[3] = b.w;
       dl[0] = Keys<T>::from_bits(c.x), dl[1] = Keys<T>::from_bits(c.y);
       dl[2] = Keys<T>::from_bits(c.z), dl[3] = Keys<T>::from_bits(c.w);
+#pragma unroll
+      for (int j = 0; j < P; ++j) take_dst(s[j], d[j], n);
       return;
     }
   }
@@ -154,6 +172,7 @@ __device__ __forceinline__ void load_edges(const int* __restrict__ src,
     s[j] = in ? src[e + j] : -1;
     d[j] = in ? dst[e + j] : -1;
     dl[j] = in ? delta[e + j] : T(0);
+    if (in) take_dst(s[j], d[j], n);
   }
 }
 
@@ -242,7 +261,7 @@ template <typename T, int P>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 edge_update_kernel(const int* __restrict__ src, const int* __restrict__ dst,
                    const T* __restrict__ delta, const T* __restrict__ values,
-                   T* __restrict__ out, long long m, long long chunk) {
+                   T* __restrict__ out, long long m, long long n, long long chunk) {
   using KT = Keys<T>;
   const T top = KT::top();
   const int lane = threadIdx.x & 31;
@@ -256,7 +275,7 @@ edge_update_kernel(const int* __restrict__ src, const int* __restrict__ dst,
   for (long long base = begin; base < end; base += 32 * P) {
     int s[P], d[P];
     T dl[P];
-    load_edges<T, P>(src, dst, delta, base + P * lane, end, vec, s, d, dl);
+    load_edges<T, P>(src, dst, delta, base + P * lane, end, n, vec, s, d, dl);
     typename KT::K k[P];
 #pragma unroll
     for (int j = 0; j < P; ++j) {
@@ -296,7 +315,7 @@ int launch(const void* src, const void* dst, const void* delta, const void* valu
   return static_cast<int>(cudaLaunchKernelEx(
       &cfg, edge_update_kernel<T, P>, static_cast<const int*>(src),
       static_cast<const int*>(dst), static_cast<const T*>(delta),
-      static_cast<const T*>(values), o, m, chunk));
+      static_cast<const T*>(values), o, m, n, chunk));
 }
 
 }  // namespace

@@ -5,7 +5,10 @@ PyTorch version.
 ``acc[d] = min over edges (s -> d) of values[s] + delta``.  An edge with
 ``src < 0`` is skipped, a source at the dtype's sentinel stays at the
 sentinel (it adds no delta), and a vertex with no live in-edge holds the
-sentinel (``sentinel_max``: +inf for f32, the int32 max for int32).
+sentinel (``sentinel_max``: +inf for f32, the int32 max for int32).  As in
+the reference (``ref.py``: ``segment_min`` over ``max(dst, 0)`` into ``n``
+segments), an edge with ``dst < 0`` goes to vertex 0 and an edge with
+``dst >= n`` is dropped.
 
 On a CUDA tensor it launches the hand-written kernel ``csrc/edge_update.cu``
 (the port of ``repro/kernels/edge_update/edge_update.py::edge_update_pallas``)
@@ -105,10 +108,11 @@ def edge_update(src: torch.Tensor, dst: torch.Tensor, delta: torch.Tensor,
                 values: torch.Tensor) -> torch.Tensor:
     """Segment-min of ``values[src] + delta`` over ``dst``; returns (n,).
 
-    ``dst`` must lie in [0, n) for every edge with ``src >= 0`` (a skipped
-    edge's dst is never read).  CUDA tensors launch the kernel on the current
-    stream (no sync); CPU tensors take the plain version.  Anything else
-    raises."""
+    ``dst`` may hold any int32: a negative one is vertex 0 and an edge with
+    ``dst >= n`` is dropped, as the reference takes them, so no address
+    outside ``[0, n)`` is ever written.  CUDA tensors launch the kernel on
+    the current stream (no sync); CPU tensors take the plain version.
+    Anything else raises."""
     dev = values.device
     # the common case in one expression; anything else goes through _check,
     # which raises on whatever it is
@@ -163,14 +167,16 @@ def edge_update_plain(src: torch.Tensor, dst: torch.Tensor, delta: torch.Tensor,
                       values: torch.Tensor) -> torch.Tensor:
     """The same function in plain PyTorch: a gather, then an ``amin``
     scatter into a sentinel-filled output (``repro/kernels/edge_update/
-    ref.py::edge_update_ref``)."""
+    ref.py::edge_update_ref``).  A dropped edge (``dst >= n``) scatters the
+    sentinel into vertex 0, which changes nothing."""
     top = sentinel_max(values.dtype)
+    n = values.shape[0]
     sv = values[src.clamp_min(0).long()]
     # a source at the sentinel is unreached: keep it saturated instead of
     # adding delta (int32 would overflow; float inf absorbs the add anyway)
-    valid = (src >= 0) & (sv != top)
+    kept = dst < n
+    valid = (src >= 0) & (sv != top) & kept
     cand = torch.where(valid, sv + delta, top)
-    out = torch.full((values.shape[0],), top, dtype=values.dtype,
-                     device=values.device)
-    return out.scatter_reduce_(0, dst.clamp_min(0).long(), cand, "amin",
-                               include_self=True)
+    out = torch.full((n,), top, dtype=values.dtype, device=values.device)
+    index = torch.where(kept, dst.clamp_min(0), 0).long()
+    return out.scatter_reduce_(0, index, cand, "amin", include_self=True)

@@ -19,7 +19,7 @@ from repro_torch.kernels.edge_update.edge_update import edge_update
 
 def scatter_min(
     src: torch.Tensor,  # (m,) int32, -1 marks masked/padding edges
-    dst: torch.Tensor,  # (m,) int32, in [0, n) for live edges
+    dst: torch.Tensor,  # (m,) int32; < 0 is vertex 0, >= n drops the edge
     delta: torch.Tensor,  # (m,) values.dtype
     values: torch.Tensor,  # (n,)
     *,

@@ -5,8 +5,9 @@ reference, and a numpy model of the CUDA kernel's steps.
 path runs, and what ``chip_smoke.py`` holds the CUDA kernel
 ``csrc/edge_update.cu`` against on the card -- must be bit-equal to the
 Pallas kernel run in interpret mode and to the reference's segment-min
-oracle, for f32 and int32, with sentinel sources, ``src = -1`` edges and
-empty segments.  ``warp_aggregated_model`` walks the kernel's plan, lanes,
+oracle, for f32 and int32, with sentinel sources, ``src = -1`` edges,
+empty segments and destinations outside ``[0, n)`` (below 0: vertex 0; from
+n on: dropped).  ``warp_aggregated_model`` walks the kernel's plan, lanes,
 runs, segmented min and atomics and must be bit-equal to both, on edge
 orders and values chosen to break the grouping.  Tolerance: none; min is
 order-independent and exact.
@@ -232,8 +233,12 @@ def warp_aggregated_model(src, dst, delta, values, resident: int):
             e = base + per_lane * lanes[:, None] + np.arange(per_lane)[None, :]  # [32, P]
             inside = e < end
             ec = np.minimum(e, max(m - 1, 0))
-            d = np.where(inside, dst[ec] if m else -1, -1)
-            k = np.where(inside, keys[ec] if m else none, none)
+            raw = dst[ec] if m else np.full(e.shape, -1, np.int32)
+            # take_dst: below 0 is vertex 0; from n on, dropped as a skipped
+            # edge with dst n - 1
+            dropped = raw >= n
+            d = np.where(inside, np.where(dropped, n - 1, np.maximum(raw, 0)), -1)
+            k = np.where(inside & ~dropped, keys[ec] if m else none, none)
             if not (k < top_key).any():
                 continue
             head, cur = k[:, 0].copy(), k[:, 0].copy()
@@ -369,6 +374,42 @@ def test_model_issues_one_atomic_per_run_with_a_candidate(order, resident):
     _, atomics = warp_aggregated_model(src, dst, delta, values, resident)
     assert len(atomics) == want
     assert len(atomics) < int(live.sum())  # one a live edge: the first design
+
+
+OUT_OF_RANGE = (-5, -1, "n", "n+7")  # destinations outside [0, n)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_out_of_range_dst_taken_as_the_reference_takes_it(dtype):
+    """dst -5 and -1 go to vertex 0, dst n and n + 7 are dropped, mixed with
+    valid edges (runs of equal dst broken by them, sorted and not): the plain
+    version and the kernel's model equal ``edge_update_ref`` and the Pallas
+    kernel in interpret mode bit for bit."""
+    src, dst, delta, values = _inputs(11, dtype, m=2 * BLOCK)
+    n, m = len(values), len(src)
+    rng = np.random.default_rng(12)
+    dst = np.sort(dst).astype(np.int32)  # runs of equal dst, as HitGraph's blocks
+    bad = rng.random(m) < 0.25
+    dst[bad] = rng.choice([v if isinstance(v, int) else n + (7 if v == "n+7" else 0)
+                           for v in OUT_OF_RANGE], int(bad.sum()))
+    dst[:4] = [-5, -1, n, n + 7]  # each at least once, in the first round
+    assert ((dst < 0) | (dst >= n)).sum() > m // 5
+    j = [jnp.asarray(a) for a in (src, dst, delta, values)]
+    ref = np.asarray(edge_update_ref(*j, n))
+    pallas = np.asarray(edge_update_pallas(*j, block=BLOCK, interpret=True))
+    np.testing.assert_array_equal(pallas.view(np.uint32), ref.view(np.uint32))
+    got = edge_update_plain(*_t(src, dst, delta, values)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+    for resident in (792, 1):
+        model, atomics = warp_aggregated_model(src, dst, delta, values, resident)
+        np.testing.assert_array_equal(model.view(np.uint32), ref.view(np.uint32))
+        assert all(0 <= a < n for a in atomics)  # no address outside [0, n)
+    # vertex 0 took the negative destinations' candidates, and dropping the
+    # rest changed the result (against the same edges with dst clipped to n - 1)
+    top = sentinel_max(torch.from_numpy(values).dtype)
+    assert got[0] != top
+    clipped = edge_update_plain(*_t(src, np.minimum(dst, n - 1), delta, values)).numpy()
+    assert not np.array_equal(clipped, got)
 
 
 def test_key_map_orders_like_the_floats():

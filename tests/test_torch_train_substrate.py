@@ -169,6 +169,35 @@ def test_clipping_scales_the_update():
             w.zero_()
 
 
+@pytest.mark.parametrize("moment_dtype,aggressive", [("float32", False), ("bfloat16", False),
+                                                     ("bfloat16", True)])
+def test_update_in_slices_is_bit_equal(moment_dtype, aggressive, monkeypatch):
+    """A leaf updated in slices of ``UPDATE_CHUNK`` elements (a last slice
+    shorter, a transposed gradient) gives the numbers of one pass over it."""
+    rng = np.random.default_rng(13)
+    shapes = {"blocks.0.moe.wg": (3, 16, 7), "blocks.0.norm1.scale": (16,)}
+    ocfg = opt.OptimizerConfig(lr=1e-2, warmup_steps=0, moment_dtype=moment_dtype,
+                               aggressive=aggressive)
+    runs = []
+    for chunk in (1 << 26, 100):
+        monkeypatch.setattr(opt, "UPDATE_CHUNK", chunk)
+        params = {n: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+            torch.bfloat16) for n, s in shapes.items()}
+        state = opt.init(ocfg, params)
+        for i in range(3):
+            rng_i = np.random.default_rng(20 + i)
+            grads = {n: torch.from_numpy(rng_i.standard_normal(s[::-1]).astype(np.float32)).to(
+                torch.bfloat16).permute(*range(len(s) - 1, -1, -1)) for n, s in shapes.items()}
+            state, _ = opt.update(ocfg, grads, state, params)
+        runs.append((params, state))
+        rng = np.random.default_rng(13)
+    (p0, s0), (p1, s1) = runs
+    for n in shapes:
+        assert torch.equal(p0[n], p1[n]) and not torch.equal(p0[n], p0[n] * 0), n
+        for key in ("m", "v"):
+            assert torch.equal(s0[key][n], s1[key][n]), (key, n)
+
+
 @pytest.mark.parametrize("arch", ["qwen3_0_6b", "qwen2_7b", "minitron_8b", "qwen2_moe_a2_7b",
                                   "arctic_480b", "jamba_v0_1_52b", "rwkv6_1_6b"])
 def test_decay_mask_agrees_on_every_name(arch):
