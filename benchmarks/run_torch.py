@@ -22,9 +22,9 @@ Benches (paper artifact -> bench):
     fig10     Fig.10/14      : MREPS by skew / average degree
     kernels   (framework)    : the four CUDA kernels through their ops, each
                                beside its plain version, us_per_call
-
-Not here: the reference's ``roofline`` bench, which summarises the LM
-dry-run JSONs; the port has no dry run yet, so it waits for that slice.
+    roofline  (framework)    : summarise the port's dry-run JSONs
+                               (``python -m repro_torch.launch.dryrun``, under
+                               results/dryrun_torch) into the roofline CSV
 
 Every paper bench is a thin ``SweepSpec`` executed through
 ``repro_torch.sweep.run_sweep``: results are content-address cached under
@@ -379,6 +379,40 @@ def bench_kernels(graphs, out, validation, sweep, device=None):
         print(f"  {r['name']},{r['us_per_call']}")
 
 
+def bench_roofline(graphs, out, validation, sweep, dryrun_dir="results/dryrun_torch"):
+    """Summarise the port's dry-run JSONs (H100 roofline terms per device)
+    into roofline_summary.csv, the reference's columns plus the peak."""
+    rows = []
+    for mesh in ("single", "multi"):
+        d = os.path.join(dryrun_dir, mesh)
+        if not os.path.isdir(d):
+            continue
+        for fn in sorted(os.listdir(d)):
+            with open(os.path.join(d, fn)) as f:
+                rec = json.load(f)
+            if rec["status"] != "ok":
+                continue
+            r, mem = rec["roofline"], rec["memory"]
+            rows.append(dict(
+                arch=rec["arch"], shape=rec["shape"], mesh=mesh,
+                step=rec["step_kind"],
+                compute_ms=round(r["compute_s"] * 1e3, 2),
+                memory_ms=round(r["memory_s"] * 1e3, 2),
+                collective_ms=round(r["collective_s"] * 1e3, 2),
+                dominant=r["dominant"],
+                useful_flops_ratio=round(rec.get("useful_flops_ratio") or 0, 3),
+                temp_gib=round((mem["peak_bytes"] - mem["argument_bytes"]) / 2**30, 2),
+                peak_gib=round(mem["peak_bytes"] / 2**30, 2),
+            ))
+    _write(os.path.join(out, "roofline_summary.csv"), rows)
+    if rows:
+        dom = {}
+        for r in rows:
+            dom[r["dominant"]] = dom.get(r["dominant"], 0) + 1
+        validation["roofline_cells"] = len(rows)
+        validation["roofline_dominant_histogram"] = dom
+
+
 BENCHES = {
     "tab4": bench_tab4,
     "tab5": bench_tab5,
@@ -388,15 +422,16 @@ BENCHES = {
     "fig9": bench_fig9,
     "fig10": bench_fig10,
     "kernels": bench_kernels,
+    "roofline": bench_roofline,
 }
 
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(
         prog="python -m benchmarks.run_torch",
-        description="The paper's benches through the PyTorch port. The "
-                    "reference's roofline bench is not here: it reads the LM "
-                    "dry-run JSONs, which the port does not write yet.")
+        description="The paper's benches through the PyTorch port, and the "
+                    "roofline bench, which reads the port's LM dry-run JSONs "
+                    "(python -m repro_torch.launch.dryrun).")
     ap.add_argument("--benches", default=",".join(BENCHES),
                     help=f"comma list from: {','.join(BENCHES)}")
     ap.add_argument("--graphs", default=",".join(DEFAULT_GRAPHS))

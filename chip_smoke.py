@@ -273,14 +273,36 @@ Phases, one JSON line each on stdout:
               ``torch.profiler`` tracing the card only), the share of
               (token, slot) pairs the MoE capacity dropped and the last
               step's aux losses.
-17. kernels -- one line per ported kernel: launches on its path (and in
+17. distributed -- the sharded steps on DTensor (``jit_train_step``,
+              ``jit_serve_steps``) over a 1x1 NCCL mesh (one card: the whole
+              DTensor path with trivial placements), made and destroyed in
+              the phase.  (a) full-width ``qwen3_0_6b`` in bf16 with remat,
+              3 steps of 8 x 1,024 ``SyntheticLM`` tokens sharded and 3
+              unsharded (``make_train_step``) from the same seeded weights
+              and batches under deterministic algorithms: losses and
+              weights bit-equal (one rank runs the unsharded step's ops;
+              the difference is printed), 0 attention launches; step
+              seconds of both.  (b) the same model served, prefill of 4 x 1,024 tokens
+              then 32 greedy decode steps, unsharded and through
+              ``jit_serve_steps`` (B4 through the op
+              ``repro_torch::flash_attention`` and its DTensor rule):
+              greedy tokens equal, logits within ``DIST_LOGIT_TOL``, B4
+              launches of the sharded run (> 0; counts reset before it),
+              decode tok/s of both.  (c) the dry run, as a child process on
+              the card's device type: ``qwen3_0_6b decode_32k single`` and
+              ``arctic_480b train_4k single`` on a fake group of 256 ranks,
+              per-rank FLOPs, bytes, collective bytes by op, peak bytes
+              (arctic's against 80 GB), roofline terms and seconds.  (d)
+              B4's op on DTensor inputs against the plain version.
+18. kernels -- one line per ported kernel: launches on its path (and in
               the sweep's engines run, ``sweep_launches``, in the sweep
               server's workers, ``served_launches``, in the multi-host
               phase's hosts, ``multihost_launches``, and for attention in
               phase train's steps, ``train_launches`` (0), its serving
               of the trained weights, ``train_serve_launches``, phase
               serve_families' runs, ``families_launches``, and phase
-              train_families' steps, ``families_train_launches`` (0)), its time at
+              train_families' steps, ``families_train_launches`` (0), and
+              phase distributed's sharded serving, ``distributed_launches``), its time at
               the path's largest call (CUDA events), its bound, the plain
               version's time and, where one PyTorch call computes the same
               function, that call's time.  ``ms`` is the mean of calls
@@ -458,6 +480,12 @@ FAMILY_PEAK_LIMIT_GB = 76.0
 # (ArchConfig.param_count), 168.8 GB at 12 B a parameter and 112.6 GB with
 # bf16 moments; it waits for sharding across cards
 FAMILY_UNTRAINED = ("arctic_480b",)
+# phase distributed: the sharded steps on a 1x1 NCCL mesh, full-width qwen3
+DIST_STEPS = 3
+DIST_LOGIT_TOL = 2e-2  # bf16 logits of two runs of the same ops, stated as ATTN_TOL's bf16
+DIST_SERVE_BATCH, DIST_PROMPT, DIST_NEW = 4, 1024, 32
+DIST_CELLS = (("qwen3_0_6b", "decode_32k"), ("arctic_480b", "train_4k"))
+CARD_BYTES = 80e9
 
 
 def emit(obj: dict) -> None:
@@ -3484,6 +3512,191 @@ def phase_train_ft(dev, card: str) -> dict:
     return info
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_distributed(dev, card: str) -> dict:
+    """The sharded train and serve steps on a 1x1 NCCL mesh against the
+    unsharded ones, B4 on DTensors, and the dry run of two production
+    cells in a child process."""
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.distributed.context import whole
+    from repro_torch.kernels import _platform
+    from repro_torch.kernels.attention import attention_fwd, attention_plain
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import Model
+    from repro_torch.serve.legacy.serve_step import (jit_serve_steps, make_decode_step,
+                                                     make_prefill_step)
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.train_step import TrainConfig, jit_train_step, make_train_step
+
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1)
+    info: dict = {}
+    try:
+        mesh = make_dev_mesh(1, model=1, device=dev.type)
+
+        # (d) B4's op on DTensor inputs, placed on the mesh, against plain
+        rng = np.random.default_rng(2027)
+        worst = 0.0
+        for b, s, nq, nkv, hd, causal in ((4, 1024, 16, 8, 128, True), (2, 256, 4, 2, 64, False)):
+            q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, hd), np.float32))
+                       .to(dev, torch.bfloat16) for n in (nq, nkv, nkv))
+            dq, dk, dv = (distribute_tensor(t, mesh, (Replicate(), Replicate()),
+                                            src_data_rank=None) for t in (q, k, v))
+            with torch.no_grad():
+                _platform.reset_launches()
+                got = attention_fwd(dq, dk, dv, causal=causal).full_tensor()
+                check(_platform.launch_counts()["attention"] == int(dev.type == "cuda"),
+                      "B4's op on DTensors did not launch the kernel once")
+                want = attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            check(err <= ATTN_TOL["bfloat16"], f"B4 op on DTensors != plain: {err}")
+            worst = max(worst, err)
+        info["dtensor_attention_err"] = worst
+
+        # (a) training: the same seeded weights and batches, unsharded then sharded
+        cfg = get_arch(TRAIN_ARCH)
+        tcfg = TrainConfig(optimizer=opt.OptimizerConfig(
+            lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS))
+        source = SyntheticLM(DataConfig(vocab=TRAIN_DATA_VOCAB, global_batch=TRAIN_BATCH,
+                                        seq_len=TRAIN_SEQ, seed=2031))
+        def train(sharded: bool) -> dict:
+            """DIST_STEPS steps from seeded weights; the weights after them
+            on the host."""
+            model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+            step = (jit_train_step(model, mesh, tcfg)(source.batch(0)) if sharded
+                    else make_train_step(model, tcfg))
+            state = opt.init(tcfg.optimizer, dict(model.named_parameters()))
+            losses, secs = [], []
+            _platform.reset_launches()
+            for i in range(DIST_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, metrics = step(state, source.batch(i))
+                losses.append(float(metrics["loss"]))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+            return dict(losses=losses, step_s=secs, median_step_s=statistics.median(secs[1:]),
+                        attention_launches=_platform.launch_counts()["attention"],
+                        params={n: whole(p).detach().cpu() for n, p in model.named_parameters()})
+
+        torch.use_deterministic_algorithms(True)
+        try:
+            runs = {"unsharded": train(False)}
+            torch.cuda.empty_cache()
+            runs["sharded"] = train(True)
+            torch.cuda.empty_cache()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        want, got = (runs[k].pop("params") for k in ("unsharded", "sharded"))
+        diff = max(float((got[n].float() - w.float()).abs().max()) for n, w in want.items())
+        del want, got
+        # one rank runs the unsharded step's ops under deterministic
+        # algorithms, so the runs are held bit-equal: 3 Adam steps at this
+        # lr move a weight by at most ~4e-4, and any looser bound would
+        # pass a sharded step that never updated the weights
+        check(runs["sharded"]["losses"] == runs["unsharded"]["losses"],
+              f"sharded losses {runs['sharded']['losses']} != unsharded "
+              f"{runs['unsharded']['losses']}")
+        check(diff == 0.0, f"sharded weights differ from unsharded by {diff}")
+        check(runs["sharded"]["attention_launches"] == 0,
+              "the attention kernel launched in training")
+        info["train"] = dict(runs, max_param_diff=diff, bit_equal=True)
+
+        # (b) serving: unsharded, then the same weights through jit_serve_steps
+        model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(1))
+        prompt = torch.from_numpy(np.random.default_rng(2032).integers(
+            0, cfg.vocab, (DIST_SERVE_BATCH, DIST_PROMPT))).to(dev)
+        max_seq = DIST_PROMPT + DIST_NEW
+
+        def serve(prefill, decode):
+            cache = model.init_cache(DIST_SERVE_BATCH, max_seq)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            last, cache = prefill({"tokens": prompt}, cache)
+            tok = torch.argmax(last[:, -1, :], dim=-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t
+            toks, logits = [tok], []
+            t = time.perf_counter()
+            for i in range(DIST_NEW - 1):
+                tok, lg, cache = decode(tok, cache, DIST_PROMPT + i)
+                toks.append(tok)
+                logits.append(lg.float())
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t
+            return dict(tokens=torch.cat(toks, 1), logits=torch.stack(logits),
+                        prefill_s=prefill_s, decode_s=decode_s,
+                        decode_tok_s=DIST_SERVE_BATCH * (DIST_NEW - 1) / decode_s)
+
+        with torch.no_grad():
+            plain = serve(make_prefill_step(model), make_decode_step(model))
+            prefill, decode, _ = jit_serve_steps(model, mesh, DIST_SERVE_BATCH, max_seq)
+            _platform.reset_launches()
+            sharded = serve(prefill, decode)
+            launches = _platform.launch_counts()["attention"]
+        logit_diff = float((sharded["logits"] - plain["logits"]).abs().max())
+        check(torch.equal(sharded["tokens"], plain["tokens"]),
+              "sharded greedy tokens differ from unsharded")
+        check(logit_diff <= DIST_LOGIT_TOL, f"sharded logits differ by {logit_diff}")
+        check(launches > 0, "no B4 launch through the op in sharded serving")
+        info["serve"] = {label: {k: r[k] for k in ("prefill_s", "decode_s", "decode_tok_s")}
+                         for label, r in (("unsharded", plain), ("sharded", sharded))}
+        info["serve"].update(max_logit_diff=logit_diff, attention_launches=launches,
+                             tokens_equal=True)
+        del model, plain, sharded, prefill, decode
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # (c) the dry run, in a child: its own fake process group of 256 ranks
+    out_dir = OUT_DIR / "dryrun_smoke"
+    code = ("import sys; from repro_torch.launch import dryrun; rc = 0\n"
+            + "".join(f"rc |= dryrun.main(['--arch', '{a}', '--shape', '{s}', '--mesh', "
+                      f"'single', '--force', '--out', {str(out_dir)!r}])\n"
+                      for a, s in DIST_CELLS)
+            + "sys.exit(rc)\n")
+    t = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                           env=serve_env(), cwd=ROOT, timeout=600)
+    (OUT_DIR / "dryrun_smoke.log").write_text(child.stdout + child.stderr)
+    check(child.returncode == 0, f"the dry run failed: {child.stdout[-2000:]}"
+                                 f"{child.stderr[-2000:]}")
+    info["dryrun_s"] = time.perf_counter() - t
+    cells = {}
+    for arch, shape in DIST_CELLS:
+        rec = json.loads((out_dir / "single" / f"{arch}__{shape}.json").read_text())
+        check(rec["status"] == "ok" and rec["chips"] == 256, f"dry run {arch} {shape}: {rec}")
+        ops = rec["op_analysis"]
+        cells[f"{arch}__{shape}"] = dict(
+            flops_per_device=ops["flops_per_device"], bytes_per_device=ops["bytes_per_device"],
+            collectives_by_op=ops["collectives_by_op"], peak_bytes=rec["memory"]["peak_bytes"],
+            argument_bytes=rec["memory"]["argument_bytes"],
+            peak_over_card=rec["memory"]["peak_bytes"] / CARD_BYTES,
+            roofline=rec["roofline"], setup_s=rec["setup_s"], run_s=rec["run_s"],
+            useful_flops_ratio=rec["useful_flops_ratio"])
+    info["dryrun"] = cells
+    info["seconds"] = time.perf_counter() - t_phase
+    emit(dict(phase="distributed", card=card, **info))
+    return info
+
+
 def phase_attention_timing(q, k, v, causal: bool) -> dict:
     import torch
     import torch.nn.functional as F
@@ -3660,7 +3873,11 @@ def main() -> None:
     # trained at full width
     train_families = phase_train_families(dev, smi)
 
-    # 17. kernel timing at each path's largest call
+    # 17. the sharded steps on DTensor over a 1x1 NCCL mesh; the dry run
+    distributed = phase_distributed(dev, smi)
+    worst["attention"] = max(worst["attention"], distributed["dtensor_attention_err"])
+
+    # 18. kernel timing at each path's largest call
     timing = {"dram_timing": phase_kernel_timing(dev, info["batch"]),
               "edge_update": phase_edge_update_timing(
                   device_info["largest"]["edge_update"][1], device_info["foregraph_call"]),
@@ -3684,7 +3901,8 @@ def main() -> None:
              search=search, sweep_server=sweep_server, multihost=multihost,
              serve_golden=serve_golden, serve=serve, serve_families=families,
              train_golden=train_golden, train=train, train_ft=train_ft,
-             train_families=train_families, kernel_timing=timing, attention_sass=sass),
+             train_families=train_families, distributed=distributed,
+             kernel_timing=timing, attention_sass=sass),
         indent=1) + "\n")
 
     replaces = {"dram_timing": "src/repro/kernels/dram_timing/dram_timing.py:120",
@@ -3705,6 +3923,7 @@ def main() -> None:
             "train_serve_launches": train["serve_launches"],
             "families_launches": families_launches,
             "families_train_launches": train_families["families_train_launches"],
+            "distributed_launches": distributed["serve"]["attention_launches"],
             "encoder_call": {key: timing[name]["encoder_call"][key] for key in (
                 "shape", "ms", "graph_ms", "bound_ms", "bound_by", "library_ms",
                 "graph_library_ms", "plain_ms", "max_abs_err")}}

@@ -7,17 +7,19 @@ a :class:`RemoteWorkerPool` the server dispatches to over the wire and the
 fault-injection harness that exercises their recovery paths and that the
 sweep runner consults when an
 :class:`~repro_torch.sweep.runner.ExecutionPolicy` carries a fault plan
-(:mod:`repro_torch.distributed.faults`).
+(:mod:`repro_torch.distributed.faults`); and the sharding rules of the LM
+scaffolding on DTensor (:mod:`repro_torch.distributed.sharding`, with the
+activation policy in :mod:`repro_torch.distributed.context`).
 
-The reference's sharding rules are not ported yet, so their names are not
-listed here.  Exports resolve lazily, as the reference's do: spawn-context
-worker children import this package on their way to ``workpool`` and
-should pay for nothing else.
+Exports resolve lazily, as the reference's do: spawn-context worker
+children import this package on their way to ``workpool`` and should pay
+for nothing else.
 """
 from __future__ import annotations
 
 __all__ = ["FaultPlan", "FaultRule", "RemoteWorkerPool", "WorkerHostAgent",
-           "WorkerLost", "WorkerPool", "parse_address", "run_worker_host"]
+           "WorkerLost", "WorkerPool", "parse_address", "run_worker_host",
+           "batch_axes", "batch_specs", "cache_specs", "param_specs", "shardings"]
 
 _LAZY = {
     "WorkerPool": ("repro_torch.distributed.workpool", "WorkerPool"),
@@ -28,6 +30,11 @@ _LAZY = {
     "WorkerHostAgent": ("repro_torch.distributed.remote", "WorkerHostAgent"),
     "parse_address": ("repro_torch.distributed.remote", "parse_address"),
     "run_worker_host": ("repro_torch.distributed.remote", "run_worker_host"),
+    "batch_axes": ("repro_torch.distributed.sharding", "batch_axes"),
+    "batch_specs": ("repro_torch.distributed.sharding", "batch_specs"),
+    "cache_specs": ("repro_torch.distributed.sharding", "cache_specs"),
+    "param_specs": ("repro_torch.distributed.sharding", "param_specs"),
+    "shardings": ("repro_torch.distributed.sharding", "shardings"),
 }
 
 

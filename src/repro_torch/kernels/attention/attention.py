@@ -11,12 +11,23 @@ f32 (scalar FMAs) and bf16 (wgmma, fed by TMA), head_dim 32, 64 and 128,
 and any S.  It has no backward: on the card, a call that autograd would
 differentiate raises (training attends through ``models.attention._sdpa``,
 as the reference trains).
+
+The kernel is also the operator ``repro_torch::flash_attention``
+(``torch.library.custom_op``), which DTensors, fake tensors and calls under
+a dispatch mode (the op counter) go through: a fake implementation gives
+its shape to ``FakeTensorMode`` (the dry run), its FLOPs, 4·B·nq·S²·hd
+halved when causal, are registered with ``torch.utils.flop_counter``, and
+a DTensor sharding rule (``_register_dtensor_rule``) runs it on each rank's
+shard of the batch or of whole GQA groups of heads.  A plain CUDA tensor
+launches the kernel directly, without the op's dispatch.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.utils.flop_counter
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._platform import LAUNCHES
@@ -74,17 +85,86 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and values; returns ``(B, S, nq, hd)`` in q's dtype.  CUDA tensors
     launch the kernel on the current stream (no sync), and raise where
     autograd would need a backward; CPU tensors take the plain version,
-    which autograd differentiates.  Anything else raises."""
+    which autograd differentiates.  DTensors (the sharded serving steps),
+    fake tensors and calls under a dispatch mode go through the op
+    ``repro_torch::flash_attention``, whose sharding rule
+    (``_register_dtensor_rule``) runs it on each rank's shard: the kernel
+    on the card, the plain version on the CPU.  Anything else raises."""
     _check(q, k, v)
-    if q.device.type == "cpu":
+    from torch.distributed.tensor import DTensor
+
+    dtensor = isinstance(q, DTensor)
+    if q.device.type == "cpu" and not dtensor:
         return attention_plain(q, k, v, causal=causal)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "the attention kernel has no backward: training takes "
             "models.attention._sdpa (train_self_attention); call the kernel "
             "under torch.no_grad() or on tensors that do not require grad")
+    if type(q) is torch.Tensor and _get_current_dispatch_mode() is None:
+        return _launch(q, k, v, causal)
+    if dtensor:
+        _register_dtensor_rule()
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool) -> torch.Tensor:
+    """The kernel as an operator: launched on CUDA tensors, the plain
+    version on CPU ones (a DTensor's CPU shards), contiguous as the
+    kernel's output is."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, causal=causal).contiguous()
+    return _launch(q, k, v, causal)
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal):
+    return torch.empty_like(q)
+
+
+def attention_flops(q_shape, k_shape, v_shape, causal: bool, *args, **kwargs) -> int:
+    """4·B·nq·S²·hd (the QKᵀ and PV products), halved when causal."""
+    b, s, nq, hd = q_shape
+    flops = 4 * b * nq * s * s * hd
+    return flops // 2 if causal else flops
+
+
+torch.utils.flop_counter.register_flop_formula(torch.ops.repro_torch.flash_attention)(
+    attention_flops)
+
+_RULE_REGISTERED = False
+
+
+def _register_dtensor_rule() -> None:
+    """Teach DTensor the op: q, k and v sharded alike on the batch (dim 0),
+    or on the heads (dim 2) where the kv heads divide the whole mesh, so
+    that every rank holds whole GQA groups of query heads beside their kv
+    head; S and hd are never sharded.  The output is placed as q."""
+    global _RULE_REGISTERED
+    if _RULE_REGISTERED:
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _rule(q, k, v, causal):
+        rules = [([Replicate()], [Replicate(), Replicate(), Replicate(), None]),
+                 ([Shard(0)], [Shard(0), Shard(0), Shard(0), None])]
+        nkv = k.tensor_meta.shape[2]
+        if nkv % k.mesh.size() == 0:
+            rules.append(([Shard(2)], [Shard(2), Shard(2), Shard(2), None]))
+        return rules
+
+    _RULE_REGISTERED = True
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Launch the kernel on plain CUDA tensors; raises on what it does not
+    take."""
     b, s, nq, hd = q.shape
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"the attention kernel takes float32 or bfloat16, not {q.dtype}")

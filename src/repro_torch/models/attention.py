@@ -26,9 +26,21 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.distributed.context import (
+    contiguous_grad,
+    gather_fsdp,
+    get_policy,
+    is_dtensor,
+    local_range,
+    mesh_placements,
+    row_axes,
+    split_dim,
+    write_along,
+)
 from repro_torch.kernels.attention.ops import flash_attention
 from repro_torch.models.layers import RMSNorm, apply_rope, dense_init_, weight
 
@@ -67,16 +79,16 @@ def _project_qkv(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor,
     """x: (B, S, D) -> q (B, S, nq, hd), k/v (B, S, nkv, hd)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
+    q = x @ gather_fsdp(p.wq)
+    k = x @ gather_fsdp(p.wk)
+    v = x @ gather_fsdp(p.wv)
     if cfg.qkv_bias:
         q = q + p.bq
         k = k + p.bk
         v = v + p.bv
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    q = split_dim(q, 2, (cfg.n_heads, hd))
+    k = split_dim(k, 2, (cfg.n_kv_heads, hd))
+    v = split_dim(v, 2, (cfg.n_kv_heads, hd))
     if cfg.qk_norm:
         q = p.q_norm(q)
         k = p.k_norm(k)
@@ -87,22 +99,87 @@ def _project_qkv(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor,
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          mask: torch.Tensor | None) -> torch.Tensor:
+          mask: torch.Tensor | None, constrain_heads: bool = False) -> torch.Tensor:
     """Grouped scaled-dot-product attention in plain torch ops.
 
     q: (B, Sq, nq, hd); k, v: (B, Sk, nkv, hd); nq = nkv * group.
-    mask: additive, broadcastable to (B, 1, Sq, Sk), or None."""
+    mask: additive, broadcastable to (B, 1, Sq, Sk), or None.
+    constrain_heads: under a policy, on DTensors, attend head-parallel on
+    each rank's shard (``_sdpa_sharded``: training, prefill and
+    cross-attention; decode caches are sequence-sharded instead)."""
+    if constrain_heads and get_policy() is not None and is_dtensor(q):
+        return _sdpa_sharded(q, k, v, mask, get_policy())
+    b, sq, nq, hd = q.shape
+    logits = _scores(q, k)
+    if mask is not None:
+        logits = logits + mask[:, :, None, :, :]
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return _weigh(probs, v).reshape(b, sq, nq * hd)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Scaled grouped scores of q (B, Sq, nq, hd) against k (B, Sk, nkv,
+    hd): (B, nkv, group, Sq, Sk) in f32."""
     b, sq, nq, hd = q.shape
     nkv = k.shape[2]
     qg = q.reshape(b, sq, nkv, nq // nkv, hd)
     # 1/sqrt(hd) rounded as the reference rounds it: sqrt in f32, then 1/x
-    scale = float(1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32)))
-    logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * scale
-    if mask is not None:
-        logits = logits + mask[:, :, None, :, :]
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
-    return out.reshape(b, sq, nq * hd)
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+    return torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * scale
+
+
+def _weigh(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Weights (B, nkv, group, Sq, Sk) times v (B, Sk, nkv, hd): (B, Sq,
+    nkv, group, hd)."""
+    return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+
+
+def _sdpa_sharded(q, k, v, mask, pol) -> torch.Tensor:
+    """``_sdpa`` head-parallel through ``local_map``: every rank attends
+    with its rows of the batch (over the batch axes that divide it) and its
+    heads (over "model"), so forward and backward stay local, as the
+    reference pins them with its ``attn_q``/``attn_kv`` constraints.  Where
+    the kv heads do not divide the model axis (qwen3's 8 on 16), K/V are
+    repeated to the query heads, each query head with its own copy; where
+    the query heads do not either (arctic's 56 on 16), the heads are padded
+    with zeros to a multiple of it, as the reference's GSPMD pads them, and
+    the padded heads' output is dropped."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    b, sq, nq, hd = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    mesh = q.device_mesh
+    tp = pol.axis_size(pol.model)
+    if nkv % tp:
+        k, v = (t[:, :, :, None].expand(b, sk, nkv, nq // nkv, hd).reshape(b, sk, nq, hd)
+                for t in (k, v))
+        nkv = nq
+    n_pad = -nkv % tp
+    rows = {ax: Shard(0) for ax in row_axes(pol, mesh, b)}
+    pl = mesh_placements(mesh, {pol.model: Shard(2), **rows})
+    whole = mesh_placements(mesh, rows)  # every head
+    if n_pad:  # padded on each rank's whole heads, so DTensor never pads a shard
+        q, k, v = (_local(lambda t: torch.nn.functional.pad(t, (0, 0, 0, n_pad)), t, whole)
+                   for t in (q, k, v))
+    def attend_local(q_, k_, v_):
+        if mesh.size() > 1:  # one rank's gradients are the whole ones, as laid out
+            q_, k_, v_ = (contiguous_grad(t) for t in (q_, k_, v_))
+        return _sdpa(q_, k_, v_, mask).contiguous()
+
+    fn = local_map(attend_local, out_placements=(pl,),
+                   in_placements=(pl, pl, pl), in_grad_placements=(pl, pl, pl),
+                   device_mesh=mesh, redistribute_inputs=True)
+    out = fn(q, k, v)
+    return _local(lambda t: t[..., :nq * hd].contiguous(), out, whole) if n_pad else out
+
+
+def _local(fn, x, pl):
+    """``fn`` on the local tensor of ``x`` placed as ``pl``, in and out."""
+    from torch.distributed.tensor.experimental import local_map
+
+    return local_map(fn, out_placements=(pl,), in_placements=(pl,), in_grad_placements=(pl,),
+                     device_mesh=x.device_mesh, redistribute_inputs=True)(x)
 
 
 def causal_mask(sq: int, sk: int, q_offset: int = 0, device=None) -> torch.Tensor:
@@ -131,7 +208,8 @@ def _blocked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
     outs = []
     for i in range(s // q_chunk):
         mask = causal_mask(q_chunk, s, i * q_chunk, q.device) if causal else None
-        outs.append(_sdpa(q[:, i * q_chunk:(i + 1) * q_chunk], k, v, mask))
+        outs.append(_sdpa(q[:, i * q_chunk:(i + 1) * q_chunk], k, v, mask,
+                          constrain_heads=True))
     return torch.cat(outs, dim=1)
 
 
@@ -145,7 +223,7 @@ def attend(p: Attention, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool = True) -> torch.Tensor:
     """Attention of projected q (B, S, nq, hd) over k, v (B, S, nkv, hd)
     through the kernel, then WO: (B, S, D)."""
-    return flash_attention(q, k, v, causal=causal) @ p.wo
+    return flash_attention(q, k, v, causal=causal) @ gather_fsdp(p.wo)
 
 
 def self_attention(p: Attention, cfg, x: torch.Tensor,
@@ -171,8 +249,9 @@ def train_self_attention(p: Attention, cfg, x: torch.Tensor,
     if s > BLOCKED_ATTN_THRESHOLD and s % Q_CHUNK == 0:
         out = _blocked_sdpa(q, k, v, causal)
     else:
-        out = _sdpa(q, k, v, causal_mask(s, s, device=x.device) if causal else None)
-    return out @ p.wo
+        out = _sdpa(q, k, v, causal_mask(s, s, device=x.device) if causal else None,
+                    constrain_heads=True)
+    return out @ gather_fsdp(p.wo)
 
 
 def cross_attention(p: Attention, cfg, x: torch.Tensor, kv_src: torch.Tensor) -> torch.Tensor:
@@ -185,13 +264,13 @@ def cross_attention(p: Attention, cfg, x: torch.Tensor, kv_src: torch.Tensor) ->
     b, s, _ = x.shape
     t = kv_src.shape[1]
     hd = cfg.head_dim
-    q = (x @ p.wq).reshape(b, s, cfg.n_heads, hd)
-    k = (kv_src @ p.wk).reshape(b, t, cfg.n_kv_heads, hd)
-    v = (kv_src @ p.wv).reshape(b, t, cfg.n_kv_heads, hd)
+    q = split_dim(x @ gather_fsdp(p.wq), 2, (cfg.n_heads, hd))
+    k = split_dim(kv_src @ gather_fsdp(p.wk), 2, (cfg.n_kv_heads, hd))
+    v = split_dim(kv_src @ gather_fsdp(p.wv), 2, (cfg.n_kv_heads, hd))
     if cfg.qk_norm:
         q = p.q_norm(q)
         k = p.k_norm(k)
-    return _sdpa(q, k, v, None) @ p.wo
+    return _sdpa(q, k, v, None, constrain_heads=True) @ gather_fsdp(p.wo)
 
 
 # ---------------------------------------------------------------------------
@@ -225,10 +304,56 @@ def decode_attention(p: Attention, cfg, x: torch.Tensor, cache: dict, pos: int):
     pos = int(pos)
     positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
-    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
-    sk = cache["k"].shape[1]
-    valid = torch.arange(sk, device=x.device)[None, :] <= pos
-    mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)[:, None, None, :]
-    out = _sdpa(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), mask)
-    return out @ p.wo, cache
+    write_along(cache["k"], pos, k_new)
+    write_along(cache["v"], pos, v_new)
+    pol = get_policy()
+    if pol is not None and is_dtensor(q):
+        out = _decode_sdpa_sharded(q, cache["k"], cache["v"], pos, pol)
+    else:
+        out = _sdpa(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype),
+                    _decode_mask(0, cache["k"].shape[1], pos, x.device))
+    return out @ gather_fsdp(p.wo), cache
+
+
+def _decode_mask(off: int, n: int, pos: int, device) -> torch.Tensor:
+    """(1, 1, 1, n) additive mask of cache slots ``off .. off + n``: 0 up to
+    ``pos``, -1e30 after."""
+    valid = torch.arange(off, off + n, device=device)[None, :] <= pos
+    return torch.where(valid, 0.0, NEG_INF).to(torch.float32)[:, None, None, :]
+
+
+def _decode_sdpa_sharded(q, k, v, pos: int, pol) -> torch.Tensor:
+    """Decode attention over a sequence-sharded cache, context-parallel,
+    through ``local_map``: each rank attends with its batch rows over its
+    own slots of the cache; the softmax is combined across the "model"
+    ranks from each rank's max, sum and unnormalised output (three small
+    all-reduces), so no rank gathers the cache.  On one model rank it is
+    ``_sdpa`` over the rank's cache, op for op."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    sk = k.shape[1]
+    mesh = q.device_mesh
+    split = pol.axis_size(pol.model) > 1
+    rows = {ax: Shard(0) for ax in row_axes(pol, mesh, q.shape[0])}
+    q_pl, kv_pl = mesh_placements(mesh, rows), mesh_placements(mesh, {pol.model: Shard(1), **rows})
+
+    def attend_local(q_, k_, v_):
+        off, n = local_range(sk, mesh, kv_pl, 1)
+        mask = _decode_mask(off, n, pos, q_.device)
+        k_, v_ = k_.to(q_.dtype), v_.to(q_.dtype)
+        if not split:
+            return _sdpa(q_, k_, v_, mask)
+        group = mesh.get_group(pol.model)
+        logits = _scores(q_, k_) + mask[:, :, None, :, :]
+        m = funcol.all_reduce(logits.amax(-1, keepdim=True), "max", group)
+        e = torch.exp(logits - m)
+        total = funcol.all_reduce(e.sum(-1, keepdim=True), "sum", group)
+        o = funcol.all_reduce(_weigh(e.to(v_.dtype), v_).float(), "sum", group)
+        out = o / total.permute(0, 3, 1, 2, 4)
+        return out.to(q_.dtype).reshape(q_.shape[0], 1, -1)
+
+    return local_map(attend_local, out_placements=(q_pl,),
+                     in_placements=(q_pl, kv_pl, kv_pl), in_grad_placements=None,
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)

@@ -10,6 +10,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed.context import (
+    contiguous_grad,
+    gather_fsdp,
+    is_dtensor,
+    local_range,
+    mesh_placements,
+    shard_axes,
+)
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -105,10 +114,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 def mlp(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
         wo: torch.Tensor) -> torch.Tensor:
     """SwiGLU: silu in f32, cast back to x's dtype."""
-    g = x @ wg
-    h = x @ wi
+    g = x @ gather_fsdp(wg)
+    h = x @ gather_fsdp(wi)
     act = torch.nn.functional.silu(g.float()).to(x.dtype) * h
-    return act @ wo
+    return act @ gather_fsdp(wo)
 
 
 class MLP(nn.Module):
@@ -129,7 +138,50 @@ class MLP(nn.Module):
 
 
 def embed(tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of the embedding table ``tok`` (V, D) for ``tokens``; a DTensor
+    table takes ``_embed_sharded``."""
+    if is_dtensor(tok):
+        return _embed_sharded(tok, tokens)
     return tok[tokens.long()]
+
+
+def _embed_sharded(tok, tokens):
+    """The vocab-parallel embedding, through ``local_map``: each rank looks
+    up the tokens of its batch rows that fall in its vocab shard, zero rows
+    for the rest, and the ranks of the vocab axis sum (a ``Partial``, which
+    the caller's ``btd`` constraint reduces).  The gradient stays local: a
+    scatter-add into the rank's own shard of the table, as the reference's
+    vocab-sharded table has it."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import place
+
+    mesh = tok.device_mesh
+    vocab = shard_axes(tok, 0)
+    rows = [ax for ax in (shard_axes(tokens, 0) if is_dtensor(tokens) else ())
+            if ax not in vocab]
+    tok_pl = mesh_placements(mesh, {ax: Shard(0) for ax in vocab})
+    ids_pl = mesh_placements(mesh, {ax: Shard(0) for ax in rows})
+    out_pl = mesh_placements(mesh, {**{ax: Shard(0) for ax in rows},
+                                    **{ax: Partial() for ax in vocab}})
+    grad_pl = mesh_placements(mesh, {**{ax: Partial() for ax in rows},
+                                     **{ax: Shard(0) for ax in vocab}})
+    if not is_dtensor(tokens):
+        tokens = place(tokens, mesh, ids_pl)
+    v_size = tok.shape[0]
+
+    def lookup(tok_, ids):
+        ids = ids.long()
+        if not vocab:
+            return tok_[ids]
+        lo, n = local_range(v_size, mesh, tok_pl, 0)
+        mine = (ids >= lo) & (ids < lo + n)
+        return tok_[torch.where(mine, ids - lo, 0)] * mine[..., None].to(tok_.dtype)
+
+    return local_map(lookup, out_placements=(out_pl,), in_placements=(tok_pl, ids_pl),
+                     in_grad_placements=(grad_pl, ids_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(tok, tokens)
 
 
 def unembed(x: torch.Tensor, tok: torch.Tensor,
@@ -146,16 +198,107 @@ def unembed(x: torch.Tensor, tok: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean token cross-entropy in f32: logsumexp of the upcast logits less
-    the gold logit (a gather, no one-hot).  With ``mask``, the masked mean,
-    divided by ``max(sum(mask), 1)``."""
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token negative log-likelihood in f32: logsumexp of the upcast
+    logits less the gold logit (a gather, no one-hot)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    return lse - gold
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy in f32: logsumexp of the upcast logits less
+    the gold logit.  With ``mask``, the masked mean, divided by
+    ``max(sum(mask), 1)``.  DTensor logits take ``_softmax_xent_sharded``."""
+    if is_dtensor(logits):
+        return _softmax_xent_sharded(logits, labels, mask)
+    nll = _nll(logits, labels)
     if mask is not None:
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def _softmax_xent_sharded(logits, labels, mask):
+    """``softmax_xent`` of DTensor logits, through ``local_map``: each rank
+    takes its batch rows and returns its share of the sums as a ``Partial``
+    over the batch-sharded mesh dims, so the gradient stays sharded as the
+    rows are (left to DTensor, the mean's backward would make it
+    whole-batch on every rank).  Logits sharded over the vocab on one mesh
+    dim stay so: ``_VocabParallelNLL`` reduces the max, the sum of exps and
+    the gold logit across that dim, as the reference's vocab-sharded logits
+    have it (a rank's 16 sequences of 4,096 tokens over qwen3's 152,064
+    entries are 37 GB of f32).  Otherwise the rows are taken with the whole
+    vocab; on one rank that is ``softmax_xent`` itself, op for op."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import place
+
+    mesh = logits.device_mesh
+    vocab_dim = logits.ndim - 1
+    rows = shard_axes(logits, 0)
+    vocab = shard_axes(logits, vocab_dim)
+    parallel = len(vocab) == 1
+    data_pl = mesh_placements(mesh, {ax: Shard(0) for ax in rows})
+    logit_pl = mesh_placements(mesh, {ax: Shard(0) for ax in rows}
+                               | ({vocab[0]: Shard(vocab_dim)} if parallel else {}))
+    sum_pl = mesh_placements(mesh, {ax: Partial() for ax in rows})
+    n = labels.numel()
+    args = [labels, mask] if mask is not None else [labels]
+    args = [a if is_dtensor(a) else place(a, mesh, data_pl) for a in args]
+    v_size = logits.shape[-1]
+
+    def body(lg, lb, *m):
+        lg = contiguous_grad(lg)
+        if parallel:
+            lo, width = local_range(v_size, mesh, logit_pl, vocab_dim)
+            nll = _VocabParallelNLL.apply(lg, lb, lo, width,
+                                          mesh.get_group(vocab[0]))
+        else:
+            nll = _nll(lg, lb)
+        if m:
+            mf = m[0].float()
+            return torch.sum(nll * mf), torch.sum(mf)
+        return (torch.mean(nll) * (nll.numel() / n),)
+
+    outs = local_map(body, out_placements=(sum_pl,) * (2 if mask is not None else 1),
+                     in_placements=(logit_pl,) + (data_pl,) * len(args),
+                     in_grad_placements=(logit_pl,) + (data_pl,) * len(args),
+                     device_mesh=mesh, redistribute_inputs=True)(logits, *args)
+    if mask is not None:
+        return outs[0] / torch.clamp(outs[1], min=1.0)
+    return outs[0]
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-token NLL of logits sharded over the vocab (this rank's columns
+    ``lo .. lo + width``): the max, the sum of exps and the gold logit are
+    all-reduced over ``group``; the gradient, softmax less one-hot times
+    the incoming gradient, is local to the shard."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo: int, width: int, group):
+        import torch.distributed._functional_collectives as funcol
+
+        x = logits.float()
+        m = funcol.wait_tensor(funcol.all_reduce(x.amax(-1), "max", group))
+        e = torch.exp(x - m[..., None])
+        total = funcol.wait_tensor(funcol.all_reduce(e.sum(-1), "sum", group))
+        ids = labels.long()
+        mine = (ids >= lo) & (ids < lo + width)
+        col = torch.where(mine, ids - lo, 0)
+        gold = torch.gather(x, -1, col[..., None])[..., 0] * mine
+        gold = funcol.wait_tensor(funcol.all_reduce(gold, "sum", group))
+        ctx.save_for_backward(e, total, col, mine)
+        ctx.dtype = logits.dtype
+        return m + torch.log(total) - gold
+
+    @staticmethod
+    def backward(ctx, grad):
+        e, total, col, mine = ctx.saved_tensors
+        g = e / total[..., None] * grad[..., None]
+        g.scatter_add_(-1, col[..., None], -(grad * mine)[..., None])
+        return g.to(ctx.dtype), None, None, None, None

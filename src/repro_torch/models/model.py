@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed.context import constrain
 from repro_torch.kernels._platform import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (
@@ -136,11 +137,11 @@ class Model(nn.Module):
         return torch.as_tensor(tokens, device=self.device)
 
     def _embed(self, tokens) -> torch.Tensor:
-        return embed(self.embed.tok, self._tokens(tokens)).to(self.dtype)
+        return constrain(embed(self.embed.tok, self._tokens(tokens)).to(self.dtype), "btd")
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = self.final_norm(x)
-        logits = unembed(x, self.embed.tok, self.embed.head)
+        logits = constrain(unembed(x, self.embed.tok, self.embed.head), "logits")
         return _mask_padded_vocab(logits, self.cfg.vocab)
 
     def _context(self, batch: dict, block=tf.apply_block, remat: bool = False) -> dict:
@@ -198,16 +199,18 @@ class Model(nn.Module):
 
     # ---- serving ----
 
-    def init_cache(self, batch: int, max_seq: int) -> dict:
+    def init_cache(self, batch: int, max_seq: int, device=None) -> dict:
         """One cache per layer: K/V for self-attention, the f32 recurrent
         state for mamba and rwkv; with a context, ``kv_src`` (B, T, D)
-        zeros that prefill replaces."""
+        zeros that prefill replaces.  On the model's device unless
+        ``device`` says otherwise (``"meta"``: shapes only)."""
+        device = self.device if device is None else torch.device(device)
         cache = {"blocks": tf.stack_cache_init(self.cfg, self.program, batch, max_seq,
-                                               self.dtype, self.device)}
+                                               self.dtype, device)}
         spec = context_input(self.cfg)
         if spec is not None:
             cache["kv_src"] = torch.zeros(batch, spec[1], self.cfg.d_model, dtype=self.dtype,
-                                          device=self.device)
+                                          device=device)
         return cache
 
     @torch.no_grad()

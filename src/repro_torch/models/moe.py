@@ -24,11 +24,19 @@ z aux losses are returned for the train loss.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.context import (
+    contiguous_grad,
+    get_policy,
+    is_dtensor,
+    mesh_placements,
+    row_axes,
+)
 from repro_torch.models.layers import MLP, dense_init_, weight
 
 # tokens per routing group at most (the reference's §Perf choice)
@@ -105,46 +113,124 @@ def route(router: torch.Tensor, xg: torch.Tensor, k: int, cap: int) -> Routing:
     return Routing(logits, probs, idx, gate, pos, pos < cap)
 
 
-def moe(p: MoE, cfg, x: torch.Tensor, capacity_factor: float | None = None):
-    """x: (B, S, D) -> (out (B, S, D), {"moe_lb_loss", "moe_z_loss"}).
-
-    ``capacity_factor`` overrides the config's (serving decodes with a
-    larger one: a dropped token is a quality bug there)."""
+def _routed(router: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+            cfg, x: torch.Tensor, cap_factor: float, e_lo: int = 0):
+    """The routed experts of ``moe`` on plain tensors: x (B, S, D) ->
+    (out (B, S, D), lb_loss, z_loss).  Routing is over all the router's
+    experts; ``wg wi wo`` hold experts ``e_lo .. e_lo + len(wg)`` and only
+    (token, slot) pairs routed to those are dispatched and combined, so
+    with every expert (``e_lo`` 0) this is the whole MoE's output, and over
+    a split of the experts the parts sum to it."""
     b, s, d = x.shape
     t = b * s
-    e, k = cfg.n_experts, cfg.top_k
+    e, k = router.shape[1], cfg.top_k
+    e_local = wg.shape[0]
     group = _group_size(t)
     n_groups = t // group
-    cap = _capacity(group, k, e, capacity_factor or cfg.moe_capacity_factor)
+    cap = _capacity(group, k, e, cap_factor)
     xf = x.reshape(t, d)
-    r = route(p.router, xf.reshape(n_groups, group, d), k, cap)
+    r = route(router, xf.reshape(n_groups, group, d), k, cap)
 
-    # expert e's slot (g, c) is row (e * G + g) * C + c of the expert batch
+    # local expert e's slot (g, c) is row (e * G + g) * C + c of the expert batch
+    mine = r.keep if e_local == e else r.keep & (r.idx >= e_lo) & (r.idx < e_lo + e_local)
     grp = torch.arange(n_groups, device=x.device)[:, None, None]
-    slot = (r.idx * n_groups + grp) * cap + r.pos
+    slot = ((r.idx - e_lo) * n_groups + grp) * cap + r.pos
     token = torch.arange(t, device=x.device).reshape(n_groups, group, 1).expand_as(slot)
-    n_slots = e * n_groups * cap
+    n_slots = e_local * n_groups * cap
     # a dropped pair writes past the end; an empty slot reads the zero row t
     table = torch.full((n_slots + 1,), t, dtype=torch.long, device=x.device)
-    table.scatter_(0, torch.where(r.keep, slot, n_slots).flatten(), token.flatten())
-    xe = torch.cat([xf, xf.new_zeros(1, d)])[table[:n_slots]].reshape(e, n_groups * cap, d)
-    g_act = torch.bmm(xe, p.wg)
-    h_act = torch.bmm(xe, p.wi)
+    table.scatter_(0, torch.where(mine, slot, n_slots).flatten(), token.flatten())
+    xe = torch.cat([xf, xf.new_zeros(1, d)])[table[:n_slots]].reshape(e_local, n_groups * cap, d)
+    g_act = torch.bmm(xe, wg)
+    h_act = torch.bmm(xe, wi)
     act = F.silu(g_act.float()).to(x.dtype) * h_act
-    ye = torch.bmm(act, p.wo).reshape(n_slots, d)
+    ye = torch.bmm(act, wo).reshape(n_slots, d)
     # combine in the compute dtype, as the reference's combine tensor is
-    gate_kept = (r.gate * r.keep).to(x.dtype)
-    rows = ye[torch.where(r.keep, slot, 0)]  # (G, T, k, D)
+    gate_kept = (r.gate * mine).to(x.dtype)
+    rows = ye[torch.where(mine, slot, 0)]  # (G, T, k, D)
     out = torch.einsum("gtk,gtkd->gtd", gate_kept, rows).reshape(b, s, d)
-
-    if p.shared is not None:
-        out = out + p.shared(x)
-    if p.dense is not None:
-        out = out + p.dense(x)
 
     # aux losses (Switch): load balance = E * mean(frac_tokens * frac_probs)
     frac_tokens = F.one_hot(r.idx, e).sum(2).float().mean(1)  # (G, E)
     frac_probs = r.probs.mean(1)
     lb_loss = e * torch.mean(torch.sum(frac_tokens * frac_probs, dim=-1))
     z_loss = torch.mean(torch.square(torch.logsumexp(r.logits, dim=-1)))
+    return out, lb_loss, z_loss
+
+
+def _routed_sharded(p: MoE, cfg, x, cap_factor: float, pol):
+    """``_routed`` on DTensors under a policy, through ``local_map``.
+
+    Tokens stay sharded over the batch axes (the ``btd`` layout) where
+    every rank's rows hold whole routing groups, and are replicated over
+    "model".  Each model rank routes its tokens over all experts, as the
+    unsharded MoE does, and dispatches only to its own experts (the expert
+    dim of ``wg wi wo`` over "model", their d_model dim gathered
+    FSDP-style), so the output is a ``Partial`` sum over "model" and no
+    all-to-all is needed.  Routing is equal index for index.  Where the
+    expert count does not divide "model" (qwen2-moe's 60 on 16), or the
+    groups would straddle ranks, that axis falls back to replication.  The
+    aux losses are means over groups: each rank's share is its local mean
+    over the ranks that hold other tokens or other experts, summed."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    b, s, _ = x.shape
+    e = cfg.n_experts
+    m_size = pol.axis_size(pol.model)
+    ep = m_size > 1 and e % m_size == 0
+    # rows over the batch axes where every rank keeps whole routing groups
+    tok = row_axes(pol, mesh, b, tokens_per_row=s, group=_group_size(b * s))
+    split = math.prod(pol.axis_size(ax) for ax in tok) * (m_size if ep else 1)
+
+    def pl(tok_pl, model_pl):
+        return mesh_placements(mesh, {pol.model: model_pl, **{ax: tok_pl for ax in tok}})
+
+    x_in = pl(Shard(0), Replicate())
+    w_in = pl(Replicate(), Shard(0) if ep else Replicate())
+    rep = pl(Replicate(), Replicate())
+    part_model = Partial() if ep else Replicate()
+    e_lo = mesh.get_local_rank(pol.model) * (e // m_size) if ep else 0
+
+    def body(*args):
+        if mesh.size() > 1:
+            args = [contiguous_grad(t) for t in args]
+        x_, router, wg, wi, wo = args
+        out, lb, z = _routed(router, wg, wi, wo, cfg, x_, cap_factor, e_lo)
+        if split > 1:
+            lb, z = lb / split, z / split
+        return out, lb, z
+
+    w_grad = pl(Partial(), Shard(0) if ep else Replicate())
+    fn = local_map(
+        body,
+        out_placements=(pl(Shard(0), part_model), pl(Partial(), part_model),
+                        pl(Partial(), part_model)),
+        in_placements=(x_in, rep, w_in, w_in, w_in),
+        in_grad_placements=(pl(Shard(0), part_model), pl(Partial(), part_model),
+                            w_grad, w_grad, w_grad),
+        device_mesh=mesh,
+        redistribute_inputs=True,
+    )
+    return fn(x, p.router, p.wg, p.wi, p.wo)
+
+
+def moe(p: MoE, cfg, x: torch.Tensor, capacity_factor: float | None = None):
+    """x: (B, S, D) -> (out (B, S, D), {"moe_lb_loss", "moe_z_loss"}).
+
+    ``capacity_factor`` overrides the config's (serving decodes with a
+    larger one: a dropped token is a quality bug there).  Under an
+    activation policy, on DTensors, the routed experts run sharded
+    (``_routed_sharded``)."""
+    cap_factor = capacity_factor or cfg.moe_capacity_factor
+    pol = get_policy()
+    if pol is not None and is_dtensor(x):
+        out, lb_loss, z_loss = _routed_sharded(p, cfg, x, cap_factor, pol)
+    else:
+        out, lb_loss, z_loss = _routed(p.router, p.wg, p.wi, p.wo, cfg, x, cap_factor)
+    if p.shared is not None:
+        out = out + p.shared(x)
+    if p.dense is not None:
+        out = out + p.dense(x)
     return out, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss}

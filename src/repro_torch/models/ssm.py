@@ -20,6 +20,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.context import (
+    contiguous_grad,
+    is_dtensor,
+    mesh_placements,
+    reduce_partial,
+    shard_axes,
+)
 from repro_torch.models.layers import RMSNorm, dense_init_, rmsnorm, weight
 
 
@@ -65,21 +72,115 @@ class Mamba(nn.Module):
 
 def _mamba_conv_full(p: Mamba, x: torch.Tensor) -> torch.Tensor:
     """Causal depthwise conv over (B, S, d_in): output s reads inputs
-    s-K+1 .. s (a cross-correlation over the left-padded input)."""
-    k, d_in = p.conv_w.shape
+    s-K+1 .. s (a cross-correlation over the left-padded input).  DTensors
+    take ``_mamba_conv_sharded``."""
+    if is_dtensor(x):
+        return _mamba_conv_sharded(p, x)
+    return _conv_local(x, p.conv_w, p.conv_b)
+
+
+def _conv_local(x: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor) -> torch.Tensor:
+    k, d_in = conv_w.shape
     xp = F.pad(x.transpose(1, 2), (k - 1, 0))  # (B, d_in, S + K - 1)
-    out = F.conv1d(xp, p.conv_w.to(x.dtype).t()[:, None, :], groups=d_in)
-    return out.transpose(1, 2) + p.conv_b
+    out = F.conv1d(xp, conv_w.to(x.dtype).t()[:, None, :], groups=d_in)
+    return out.transpose(1, 2) + conv_b
+
+
+def _mamba_conv_sharded(p: Mamba, x):
+    """The depthwise conv on each rank's batch rows and channels, through
+    ``local_map``: a channel's conv reads only its own channel, so the
+    channels shard as ``conv_w``/``conv_b`` do (over "model", where they
+    divide), and DTensor's conv rule, which keeps the global group count
+    for a local weight, is not asked."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    chan = shard_axes(p.conv_w, 1)
+    rows = [ax for ax in shard_axes(x, 0) if ax not in chan]
+
+    def pl(row, ch):
+        return mesh_placements(mesh, {**{ax: row for ax in rows}, **{ax: ch for ax in chan}})
+
+    x_pl, w_pl, b_pl = pl(Shard(0), Shard(2)), pl(Replicate(), Shard(1)), pl(Replicate(), Shard(0))
+
+    def conv(*args):
+        if mesh.size() > 1:  # one rank's gradients are the whole ones, as laid out
+            args = [contiguous_grad(t) for t in args]
+        return _conv_local(*args).contiguous()
+
+    return local_map(
+        conv,
+        out_placements=(x_pl,), in_placements=(x_pl, w_pl, b_pl),
+        in_grad_placements=(x_pl, pl(Partial(), Shard(1)), pl(Partial(), Shard(0))),
+        device_mesh=mesh, redistribute_inputs=True)(x, p.conv_w, p.conv_b)
 
 
 def _mamba_ssm_inputs(p: Mamba, cfg, xc: torch.Tensor):
     """Data-dependent dt, B, C (f32) from the conv output xc (B, S, d_in)."""
     _, dt_rank = mamba_dims(cfg)
     ds = cfg.ssm_d_state
-    proj = xc @ p.x_proj
+    # x_proj is row-parallel: its partial sums are reduced before the split,
+    # or DTensor would have to make dt_bias partial to add it
+    proj = reduce_partial(xc @ p.x_proj)
     dt_low, bmat, cmat = torch.split(proj, [dt_rank, ds, ds], dim=-1)
     dt = dt_low @ p.dt_proj + p.dt_bias
     return F.softplus(dt.float()), bmat.float(), cmat.float()
+
+
+def _mamba_scan(dt, bmat, cmat, xcf, a):
+    """The selective scan: dt, xcf (B, S, d_in), bmat, cmat (B, S, ds), a
+    (d_in, ds), from a zero state.  Returns (y (B, S, d_in), final h)."""
+    b, s, d_in = xcf.shape
+    h = torch.zeros(b, d_in, a.shape[1], dtype=torch.float32, device=xcf.device)
+    ys = []
+    for i in range(s):
+        dt_t = dt[:, i, :, None]
+        h = torch.exp(dt_t * a) * h + (dt_t * bmat[:, i, None, :]) * xcf[:, i, :, None]
+        ys.append(torch.einsum("bcs,bs->bc", h, cmat[:, i]))
+    return torch.stack(ys, dim=1), h
+
+
+def _sharded_scan(scan, args: tuple, dims: tuple, out_dims: tuple):
+    """``scan(*args)`` for plain tensors.  On DTensors it runs on each
+    rank's shard through ``local_map``, so a scan of S tokens costs S steps
+    of local ops and not of DTensor dispatch: ``dims`` gives, for each
+    argument, its (batch dim, channel dim) (``None`` where it has none);
+    batch rows shard over the mesh dims that shard the first argument's
+    batch, channels (heads, or mamba's inner dim) over those that shard its
+    channels.  A recurrence is independent per row and channel, so the
+    shards are exact; an argument without one of the two dims is whole
+    there, and its gradient is a ``Partial`` sum over that mesh dim.
+    ``out_dims`` gives the outputs' (batch dim, channel dim)."""
+    if not is_dtensor(args[0]):
+        return scan(*args)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import place
+
+    first, (bdim, cdim) = args[0], dims[0]
+    mesh = first.device_mesh
+    role = {ax: r for r, d in enumerate((bdim, cdim)) if d is not None
+            for ax in shard_axes(first, d)}  # mesh dim -> 0 (rows) or 1 (channels)
+
+    def placed(dims_, grad=False):
+        return mesh_placements(mesh, {ax: Shard(dims_[r]) if dims_[r] is not None else
+                                      Partial() if grad else Replicate()
+                                      for ax, r in role.items()})
+
+    def body(*local):
+        if mesh.size() > 1:  # one rank's gradients are the whole ones, as laid out
+            local = [contiguous_grad(t) for t in local]
+        return tuple(t.contiguous() for t in scan(*local))
+
+    # a plain argument (a zero initial state) is the same whole tensor on
+    # every rank: each keeps its shard
+    args = [a if is_dtensor(a) else place(a, mesh, placed(d)) for a, d in zip(args, dims)]
+    return local_map(body, out_placements=tuple(placed(d) for d in out_dims),
+                     in_placements=tuple(placed(d) for d in dims),
+                     in_grad_placements=tuple(placed(d, grad=True) for d in dims),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 def mamba(p: Mamba, cfg, x: torch.Tensor, return_state: bool = False):
@@ -90,13 +191,9 @@ def mamba(p: Mamba, cfg, x: torch.Tensor, return_state: bool = False):
     a = -torch.exp(p.A_log)  # (d_in, ds)
     xcf = xc.float()
     b, s, d_in = xc.shape
-    h = torch.zeros(b, d_in, cfg.ssm_d_state, dtype=torch.float32, device=x.device)
-    ys = []
-    for i in range(s):
-        dt_t = dt[:, i, :, None]
-        h = torch.exp(dt_t * a) * h + (dt_t * bmat[:, i, None, :]) * xcf[:, i, :, None]
-        ys.append(torch.einsum("bcs,bs->bc", h, cmat[:, i]))
-    y = torch.stack(ys, dim=1) + xcf * p.D  # (B, S, d_in)
+    ys, h = _sharded_scan(_mamba_scan, (dt, bmat, cmat, xcf, a),
+                          ((0, 2), (0, None), (0, None), (0, 2), (None, 0)), ((0, 2), (0, 1)))
+    y = ys + xcf * p.D  # (B, S, d_in)
     y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
     out = y @ p.out_proj
     if not return_state:
@@ -213,6 +310,19 @@ def _rwkv_out(p: RWKVTimeMix, x: torch.Tensor, y: torch.Tensor, g: torch.Tensor)
     return y @ p.wo
 
 
+def _rwkv_scan(rh, kh, vh, wh, u, state):
+    """The time mix's recurrence over (B, S, nh, hd) f32 r, k, v, w, the
+    bonus u (nh, hd) and the state (B, nh, hd, hd).  Returns (y (B, S, nh,
+    hd), final state)."""
+    u = u[None, :, :, None]
+    ys = []
+    for i in range(rh.shape[1]):
+        kv = kh[:, i, :, :, None] * vh[:, i, :, None, :]  # (B, nh, hd_k, hd_v)
+        ys.append(torch.einsum("bhk,bhkv->bhv", rh[:, i], state + u * kv))
+        state = wh[:, i, :, :, None] * state + kv
+    return torch.stack(ys, dim=1), state
+
+
 def rwkv_time_mix(p: RWKVTimeMix, cfg, x: torch.Tensor, x_prev=None, state0=None,
                   return_state: bool = False):
     """RWKV-6 time mix over a full sequence. x: (B, S, D)."""
@@ -222,15 +332,11 @@ def rwkv_time_mix(p: RWKVTimeMix, cfg, x: torch.Tensor, x_prev=None, state0=None
         x_prev = x.new_zeros(b, d)
     r, k, v, g, w = _rwkv_projections(p, x, _rwkv_shift(x, x_prev))
     rh, kh, vh, wh = (_heads(t, nh, hd) for t in (r, k, v, w))
-    u = p.u[None, :, :, None]
     state = (state0 if state0 is not None
              else torch.zeros(b, nh, hd, hd, dtype=torch.float32, device=x.device))
-    ys = []
-    for i in range(s):
-        kv = kh[:, i, :, :, None] * vh[:, i, :, None, :]  # (B, nh, hd_k, hd_v)
-        ys.append(torch.einsum("bhk,bhkv->bhv", rh[:, i], state + u * kv))
-        state = wh[:, i, :, :, None] * state + kv
-    y = torch.stack(ys, dim=1).reshape(b, s, d)  # (B, S, D) f32
+    y, state = _sharded_scan(_rwkv_scan, (rh, kh, vh, wh, p.u, state),
+                             ((0, 2),) * 4 + ((None, 0), (0, 1)), ((0, 2), (0, 1)))
+    y = y.reshape(b, s, d)  # (B, S, D) f32
     out = _rwkv_out(p, x, y, g)
     if not return_state:
         return out
@@ -238,14 +344,14 @@ def rwkv_time_mix(p: RWKVTimeMix, cfg, x: torch.Tensor, x_prev=None, state0=None
 
 
 def rwkv_time_mix_decode(p: RWKVTimeMix, cfg, x: torch.Tensor, state: dict):
-    """Single-token time mix.  state: {"s": (B, nh, hd, hd), "x_prev": (B, D)}."""
+    """Single-token time mix, one step of the scan.  state: {"s": (B, nh,
+    hd, hd), "x_prev": (B, D)}."""
     b, _, d = x.shape
     nh, hd = rwkv_dims(cfg)
     r, k, v, g, w = _rwkv_projections(p, x, state["x_prev"][:, None, :].to(x.dtype))
-    r_t, k_t, v_t, w_t = (_heads(t, nh, hd)[:, 0] for t in (r, k, v, w))
-    kv = k_t[..., :, None] * v_t[..., None, :]
-    y = torch.einsum("bhk,bhkv->bhv", r_t, state["s"] + p.u[None, :, :, None] * kv)
-    new_s = w_t[..., :, None] * state["s"] + kv
+    rh, kh, vh, wh = (_heads(t, nh, hd) for t in (r, k, v, w))
+    y, new_s = _sharded_scan(_rwkv_scan, (rh, kh, vh, wh, p.u, state["s"]),
+                             ((0, 2),) * 4 + ((None, 0), (0, 1)), ((0, 2), (0, 1)))
     out = _rwkv_out(p, x, y.reshape(b, 1, d), g)
     return out, {"s": new_s, "x_prev": x[:, 0, :].float()}
 

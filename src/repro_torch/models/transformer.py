@@ -30,6 +30,7 @@ import functools
 import torch
 from torch import nn
 
+from repro_torch.distributed.context import constrain, write_along
 from repro_torch.models import ssm
 from repro_torch.models.attention import (
     Attention,
@@ -164,8 +165,11 @@ def _ffn(p: Block, cfg, h2: torch.Tensor, capacity_factor: float | None = None):
 def apply_block(p: Block, cfg, x: torch.Tensor, ctx: dict, attention=self_attention):
     """One block over the full sequence, self-attention through the kernel;
     ``ctx["kv_src"]`` (B, T, D) feeds cross-attention.  Returns (x, MoE aux
-    losses or None)."""
-    x = _mix(p, cfg, x, ctx, attention)
+    losses or None).  Under a policy the residual stream is pinned to the
+    ``btd`` layout between the mixer and the ffn too: left to DTensor, the
+    mixer's model-partial output is reduce-scattered over d_model, and the
+    ffn then gathers its weights whole instead of running tensor-parallel."""
+    x = constrain(_mix(p, cfg, x, ctx, attention), "btd")
     out, aux = _ffn(p, cfg, p.norm2(x))
     return x + out, aux
 
@@ -201,10 +205,10 @@ def stack_forward(blocks, cfg, x: torch.Tensor, ctx: dict, block=apply_block,
     def run(x, group, ctx):
         lb = z = x.new_zeros((), dtype=torch.float32)
         for p in group:
-            x, aux = block(p, cfg, x, ctx)
+            x, aux = block(p, cfg, constrain(x, "btd"), ctx)
             if aux is not None:
                 lb, z = lb + aux["moe_lb_loss"], z + aux["moe_z_loss"]
-        return x, lb, z
+        return constrain(x, "btd"), lb, z
 
     if not remat:
         x, lb, z = run(x, blocks, ctx)
@@ -234,13 +238,13 @@ def stack_prefill(blocks, cfg, x: torch.Tensor, caches: list, ctx: dict):
     the cache, once inside its block); the port projects once, with the
     same numbers."""
     for p, c in zip(blocks, caches):
+        x = constrain(x, "btd")
         h = p.norm1(x)
         if p.spec.mixer in ("attn", "self_cross"):
             q, k, v = _project_qkv(p.attn, cfg, h, sequence_positions(h))
             x = x + attend(p.attn, q, k, v, causal=True)
-            s = k.shape[1]
-            c["k"][:, :s] = k.to(c["k"].dtype)
-            c["v"][:, :s] = v.to(c["v"].dtype)
+            write_along(c["k"], 0, k)
+            write_along(c["v"], 0, v)
             x = _cross(p, cfg, x, ctx)
         elif p.spec.mixer == "cross":
             x = x + cross_attention(p.attn, cfg, h, ctx["kv_src"])
@@ -290,7 +294,7 @@ def apply_block_decode(p: Block, cfg, x: torch.Tensor, cache: dict, pos: int, ct
 def stack_decode(blocks, cfg, x: torch.Tensor, caches: list, pos: int, ctx: dict):
     """Decode through the stack, one cache per layer.  Returns (x, caches)."""
     for li, p in enumerate(blocks):
-        x, caches[li] = apply_block_decode(p, cfg, x, caches[li], pos, ctx)
+        x, caches[li] = apply_block_decode(p, cfg, constrain(x, "btd"), caches[li], pos, ctx)
     return x, caches
 
 

@@ -23,6 +23,12 @@ opt_state)``.
 bf16 is stored as a ``uint16`` view with its dtype in the manifest, and is
 restored from those bits without ``ml_dtypes``.  ``restore`` copies into
 the given tree's tensors in place, on whatever device they live.
+
+Checkpoints hold whole (global) arrays.  A DTensor is gathered whole to be
+saved (a collective: every rank of its mesh saves), and
+``restore_sharded`` places each restored array onto a mesh by the given
+specs, as the reference's ``device_put`` does: the elastic restart onto
+another mesh.
 """
 from __future__ import annotations
 
@@ -36,6 +42,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.distributed.context import whole
 
 
 def _flat_tensors(tree: Any, prefix: str = "") -> dict[str, torch.Tensor]:
@@ -61,8 +69,8 @@ def _dtype_name(t: torch.Tensor) -> str:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A host copy of ``t`` (bf16 as its uint16 bits)."""
-    t = t.detach().to("cpu", copy=True)
+    """A host copy of ``t`` (bf16 as its uint16 bits); a DTensor whole."""
+    t = whole(t.detach()).to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
@@ -176,3 +184,37 @@ class Checkpointer:
                     raise ValueError(f"{key}: shape {tuple(src.shape)} != {tuple(t.shape)}")
                 t.copy_(src.to(t.dtype))
         return tree, step
+
+    def restore_sharded(self, tree: Any, mesh, specs: Any, step: Optional[int] = None):
+        """Restore a checkpoint (the latest by default) whole and place each
+        array onto ``mesh`` by ``specs`` (a ``P`` tree in ``tree``'s
+        structure): the elastic restart path, on a mesh that may differ from
+        the one that saved.  ``tree`` (a dict/list tree of tensors or
+        DTensors) gives the keys, shapes and dtypes; it is not changed.
+        Returns (placed tree, step)."""
+        from repro_torch.distributed.sharding import place, shardings
+
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.dir}")
+        d = os.path.join(self.dir, f"step_{step:08d}")
+        with open(os.path.join(d, "manifest.json")) as f:
+            manifest = json.load(f)
+        pls = shardings(mesh, specs)
+        with np.load(os.path.join(d, f"shard_p{self.process_index}.npz")) as z:
+
+            def build(node, pl, prefix):
+                if isinstance(node, dict):
+                    return {k: build(v, pl[k], f"{prefix}{k}/") for k, v in node.items()}
+                if isinstance(node, (list, tuple)):
+                    return type(node)(build(v, p, f"{prefix}{i}/")
+                                      for i, (v, p) in enumerate(zip(node, pl)))
+                key = prefix.rstrip("/")
+                if key not in manifest["keys"]:
+                    raise KeyError(f"checkpoint missing {key}")
+                src = _from_numpy(z[key.replace("/", "__")], manifest["keys"][key]["dtype"])
+                if tuple(src.shape) != tuple(node.shape):
+                    raise ValueError(f"{key}: shape {tuple(src.shape)} != {tuple(node.shape)}")
+                return place(src.to(mesh.device_type).to(node.dtype), mesh, pl)
+
+            return build(tree, pls, ""), step

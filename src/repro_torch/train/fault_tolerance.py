@@ -1,12 +1,14 @@
-"""Fault tolerance: supervised training with checkpoint/restart and
-straggler surveillance (port of ``repro/train/fault_tolerance.py``, without
-the mesh: ``remesh`` belongs to the distribution slice).
+"""Fault tolerance: supervised training with checkpoint/restart, straggler
+surveillance and elastic re-meshing (port of
+``repro/train/fault_tolerance.py``).
 
 - ``run_supervised`` drives the train loop; a step raising
   ``WorkerFailure`` triggers a restore from the latest checkpoint into the
   live model and optimizer state, and the loop resumes there.  The data of
   a step is a function of the step, so the resumed run is bit-equal to an
   uninterrupted one.
+- ``remesh`` places live (DTensor) state onto another mesh, e.g. after
+  losing a pod.
 - ``StragglerMonitor`` tracks a robust step-time estimate (median + MAD)
   and flags steps beyond ``threshold`` MADs, feeding the supervisor's
   ``on_straggler`` callback.
@@ -120,3 +122,23 @@ def run_supervised(
             log(f"[ft] restored step {step}")
     ckpt.wait()
     return params, opt_state, history
+
+
+def remesh(tree: Any, new_mesh, specs: Any) -> Any:
+    """Elastic re-mesh of live state onto a different mesh: every tensor of
+    ``tree`` (a dict/list tree of tensors or DTensors) is gathered whole and
+    placed onto ``new_mesh`` by ``specs`` (a ``P`` tree in its structure),
+    the reference's ``device_put`` against the new mesh's shardings."""
+    from repro_torch.distributed.context import whole
+    from repro_torch.distributed.sharding import place, shardings
+
+    pls = shardings(new_mesh, specs)
+
+    def move(node, pl):
+        if isinstance(node, dict):
+            return {k: move(v, pl[k]) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(move(v, p) for v, p in zip(node, pl))
+        return place(whole(node).detach().to(new_mesh.device_type), new_mesh, pl)
+
+    return move(tree, pls)

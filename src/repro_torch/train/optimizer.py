@@ -17,6 +17,14 @@ otherwise reach 34 GB on jamba's (16, 4,096, 14,336) expert stack and 38 GB
 on llama-vision's 1.05 B-entry embedding, more than the card holds beside
 the weights and moments.  Every op is elementwise, so the numbers are the
 same.
+
+On DTensor parameters (``train_step.jit_train_step``) the state mirrors
+their placements (``state_specs``; the step stays a plain 0-d tensor,
+the same on every rank).  ``update`` brings each gradient to its
+parameter's placements, takes the global norm as one full reduction, and
+runs the elementwise AdamW on each leaf's local shard, still in
+``UPDATE_CHUNK`` slices (``view(-1)`` of a sharded DTensor is no flat
+view of its shard).  The update is fully local: no optimizer collectives.
 """
 from __future__ import annotations
 
@@ -25,6 +33,8 @@ import math
 
 import torch
 
+from repro_torch.distributed.context import is_dtensor
+from repro_torch.distributed.sharding import P
 from repro_torch.models.layers import dtype_of
 
 UPDATE_CHUNK = 1 << 26  # elements of a leaf updated at once (f32 temporaries ~2.4 GB)
@@ -62,14 +72,52 @@ def init(cfg: OptimizerConfig, params: dict) -> dict:
     device = next(iter(params.values())).device
     return {
         "step": torch.zeros((), dtype=torch.int32, device=device),
-        "m": {n: torch.zeros(p.shape, dtype=mdt, device=p.device) for n, p in params.items()},
-        "v": {n: torch.zeros(p.shape, dtype=vdt, device=p.device) for n, p in params.items()},
+        "m": {n: _zeros_like(p, mdt) for n, p in params.items()},
+        "v": {n: _zeros_like(p, vdt) for n, p in params.items()},
     }
 
 
+def _zeros_like(p: torch.Tensor, dtype) -> torch.Tensor:
+    """Zeros of p's shape: on p's device, or a DTensor placed as p is."""
+    if is_dtensor(p):
+        return torch.zeros_like(p.detach(), dtype=dtype)
+    return torch.zeros(p.shape, dtype=dtype, device=p.device)
+
+
+def state_specs(params_specs: dict) -> dict:
+    """Optimizer-state specs mirror the parameter specs; the step is
+    replicated."""
+    return {"step": P(), "m": params_specs, "v": params_specs}
+
+
+def _partial(t):
+    """A DTensor scalar as a ``Partial`` sum over every mesh dim: along a
+    dim where it is replicated, the rank at coordinate 0 keeps the value and
+    the others hold zero, so the sum is exact.  A plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    local = t.to_local()
+    coord = t.device_mesh.get_coordinate()
+    if any(isinstance(pl, Replicate) and c != 0 for pl, c in zip(t.placements, coord)):
+        local = torch.zeros_like(local)
+    return DTensor.from_local(local, t.device_mesh, (Partial(),) * t.device_mesh.ndim,
+                              run_check=False)
+
+
+def _local(t):
+    return t.to_local() if is_dtensor(t) else t
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+    """sqrt of the sum of squares of every tensor, in f32.  On DTensors the
+    per-leaf sums are made partial sums and reduced once; the result is a
+    plain tensor, the same on every rank."""
+    total = sum(_partial(torch.sum(torch.square(t.float()))) for t in tensors)
+    if is_dtensor(total):
+        total = total.full_tensor()
+    return torch.sqrt(total)
 
 
 def _decay_mask(name: str) -> bool:
@@ -88,6 +136,7 @@ def update(cfg: OptimizerConfig, grads: dict, state: dict, params: dict):
     step = state["step"] + 1
     lr = schedule(cfg, step)
 
+    grads = {n: _placed_as(grads[n], p) for n, p in params.items()}
     gnorm = global_norm(grads[n] for n in params)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
 
@@ -98,8 +147,8 @@ def update(cfg: OptimizerConfig, grads: dict, state: dict, params: dict):
 
     for name, p in params.items():
         decay = cfg.weight_decay and _decay_mask(name)
-        flat = (p.view(-1), state["m"][name].view(-1), state["v"][name].view(-1),
-                grads[name].reshape(-1))
+        flat = (_local(p).view(-1), _local(state["m"][name]).view(-1),
+                _local(state["v"][name]).view(-1), _local(grads[name]).reshape(-1))
         for w, m, v, g in zip(*(t.split(UPDATE_CHUNK) for t in flat)):
             g = g.float() * scale
             m32 = b1 * m.float() + (1 - b1) * g
@@ -114,3 +163,10 @@ def update(cfg: OptimizerConfig, grads: dict, state: dict, params: dict):
             v.copy_(v32)
     state["step"] = step
     return state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _placed_as(g, p):
+    """The gradient ``g`` with the placements of its parameter ``p``."""
+    if not is_dtensor(p) or tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)

@@ -1,5 +1,5 @@
 """The train step: loss -> gradients -> AdamW update (port of
-``repro/train/train_step.py``, without the mesh).
+``repro/train/train_step.py``).
 
 ``make_train_step(model, tcfg)`` returns ``step(opt_state, batch) ->
 (opt_state, metrics)``.  It differentiates ``Model.loss`` with autograd and
@@ -11,6 +11,12 @@ updates the model's parameters and the optimizer state in place; the batch
 With ``micro_steps > 1`` the batch is split into that many microbatches
 along its first axis, and each microbatch's gradient is divided by
 ``micro_steps`` and added to f32 buffers, as the reference's scan does.
+
+``jit_train_step(model, mesh, tcfg)`` is the sharded step, on DTensor
+(the reference's jit with in/out shardings): the step math stays
+single-program, the parameters, optimizer state and batch are placed by
+``distributed/sharding.py``'s rules, and the activation policy pins the
+layouts the model constrains.
 """
 from __future__ import annotations
 
@@ -51,8 +57,7 @@ def make_train_step(model: Model, tcfg: TrainConfig | None = None):
         ms = tcfg.micro_steps
         micro = {k: v.reshape((ms, v.shape[0] // ms) + tuple(v.shape[1:]))
                  for k, v in to_device(batch).items()}
-        acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for n, p in params.items()}
+        acc = {n: opt._zeros_like(p, torch.float32) for n, p in params.items()}
         loss_acc = torch.zeros((), dtype=torch.float32, device=model.device)
         for i in range(ms):
             loss, _, grads = value_and_grad({k: v[i] for k, v in micro.items()})
@@ -64,3 +69,43 @@ def make_train_step(model: Model, tcfg: TrainConfig | None = None):
         return opt_state, {"loss": loss_acc, **opt_metrics}
 
     return single if tcfg.micro_steps == 1 else accumulated
+
+
+def jit_train_step(model: Model, mesh, tcfg: TrainConfig | None = None):
+    """The train step sharded on ``mesh`` (a ``DeviceMesh`` with named
+    dims).  Replaces each of ``model``'s parameters, in place, by a DTensor
+    placed by ``param_specs``, and returns ``compile_for(batch_example) ->
+    step(opt_state, batch) -> (opt_state, metrics)``: the step places the
+    optimizer state by ``state_specs`` (on its first call; the state is
+    updated in place after) and the batch by ``batch_specs``, runs
+    ``make_train_step``'s math under the activation policy, and returns
+    its metrics as plain tensors, the same on every rank.  The batch is
+    the whole global batch on every rank."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.context import ActivationPolicy, activation_policy, whole
+
+    tcfg = tcfg or TrainConfig()
+    pspecs = shd.param_specs(model, mesh)
+    shd.place_parameters(model, mesh, pspecs)
+    state_pl = shd.shardings(mesh, opt.state_specs(pspecs))
+    step = make_train_step(model, tcfg)
+    pol = ActivationPolicy(mesh, shd.batch_axes(mesh))  # train batches divide the DP axes
+
+    def compile_for(batch_example: dict):
+        batch_pl = shd.shardings(mesh, shd.batch_specs(mesh, batch_example))
+
+        def sharded_step(opt_state: dict, batch: dict):
+            for key in ("m", "v"):
+                opt_state[key] = shd.place_tree(opt_state[key], mesh, state_pl[key])
+            batch = {k: shd.place(torch.as_tensor(v, device=model.device), mesh, batch_pl[k])
+                     for k, v in batch.items()}
+            with activation_policy(pol), implicit_replication():
+                opt_state, metrics = step(opt_state, batch)
+            return opt_state, {k: whole(v) for k, v in metrics.items()}
+
+        return sharded_step
+
+    return compile_for
+

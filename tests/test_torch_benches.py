@@ -61,7 +61,8 @@ def test_bench_writes_the_reference_s_rows_and_validation(bench, tmp_path, monke
 
 
 def test_bench_set_is_the_reference_s_but_roofline(capsys):
-    assert set(run_torch.BENCHES) == set(ref_run.BENCHES) - {"roofline"}
+    # the roofline bench came with the port's dry run: the sets are equal now
+    assert set(run_torch.BENCHES) == set(ref_run.BENCHES)
     with pytest.raises(SystemExit):
         run_torch.main(["--help"])
     assert "roofline" in capsys.readouterr().out

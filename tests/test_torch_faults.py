@@ -109,20 +109,23 @@ def test_corrupt_records_and_delay_match_reference():
 
 
 def test_package_exports_only_what_resolves():
-    from repro_torch.distributed import remote, workpool
+    from repro_torch.distributed import remote, sharding, workpool
 
-    assert sorted(distributed.__all__) == ["FaultPlan", "FaultRule", "RemoteWorkerPool",
-                                           "WorkerHostAgent", "WorkerLost", "WorkerPool",
-                                           "parse_address", "run_worker_host"]
+    assert sorted(distributed.__all__) == sorted([
+        "FaultPlan", "FaultRule", "RemoteWorkerPool", "WorkerHostAgent", "WorkerLost",
+        "WorkerPool", "parse_address", "run_worker_host",
+        "batch_axes", "batch_specs", "cache_specs", "param_specs", "shardings"])
     assert distributed.FaultPlan is faults.FaultPlan
     assert distributed.FaultRule is faults.FaultRule
     assert distributed.WorkerPool is workpool.WorkerPool
     assert distributed.WorkerLost is workpool.WorkerLost
     for name in ("RemoteWorkerPool", "WorkerHostAgent", "parse_address", "run_worker_host"):
         assert getattr(distributed, name) is getattr(remote, name)
-    for name in ("param_specs", "shardings"):
-        with pytest.raises(AttributeError):
-            getattr(distributed, name)  # sharding: not ported yet
+    # the sharding rules, ported with the mesh half of training and serving
+    for name in ("batch_axes", "batch_specs", "cache_specs", "param_specs", "shardings"):
+        assert getattr(distributed, name) is getattr(sharding, name)
+    with pytest.raises(AttributeError):
+        distributed.no_such_export
 
 
 # ---- policied execution through a fault plan ---------------------------------
