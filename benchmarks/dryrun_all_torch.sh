@@ -1,8 +1,8 @@
 #!/bin/bash
 # The dry run (python -m repro_torch.launch.dryrun) of every (arch x shape)
 # cell on the single-pod mesh: one process a cell, four at a time, each cut
-# at CELL_S seconds (the per-token scans of rwkv6 and jamba are slow under
-# fake tensors).  Run from the repository root on the card's machine (no
+# at CELL_S seconds (rwkv6's and jamba's chunked scans take a few ops a
+# chunk of 32 tokens under fake tensors).  Run from the repository root on the card's machine (no
 # --device: the fake tensors claim the card); OUT (default
 # chiprun_out/dryrun_all) gets the records under single/, a log a cell,
 # cells.txt (exit code and seconds a cell; 124 = cut) and card.txt.

@@ -466,11 +466,9 @@ LAUNCH_MOE = ("--arch", "qwen2_moe_a2_7b", "--layers", "1", "--steps", "4", "--b
 # 4.0 GB.  llama-vision keeps m and v in bf16 (``aggressive``), 8 B a
 # parameter: one period, 4 self + 1 cross of 100 layers, 51.0 GB.
 # The last two fields: steps, and steady steps of them profiled
-# (torch.profiler, the card only).  rwkv6's per-token scan under autograd
-# and remat takes ~8.8 s a step on an H100 (700 W): its run is cut to 6
-# steps, 1 profiled, its widths, depth and batch kept.
+# (torch.profiler, the card only).
 FAMILY_TRAIN = (("qwen2_moe_a2_7b", 4, 4, 1024, "float32", 10, 2),
-                ("rwkv6_1_6b", None, 4, 256, "float32", 6, 1),
+                ("rwkv6_1_6b", None, 4, 256, "float32", 10, 2),
                 ("jamba_v0_1_52b", 2, 4, 256, "float32", 10, 2),
                 ("whisper_small", None, 8, 224, "float32", 10, 2),
                 ("llama3_2_vision_90b", 5, 2, 512, "bfloat16", 10, 2))
@@ -484,7 +482,14 @@ FAMILY_UNTRAINED = ("arctic_480b",)
 DIST_STEPS = 3
 DIST_LOGIT_TOL = 2e-2  # bf16 logits of two runs of the same ops, stated as ATTN_TOL's bf16
 DIST_SERVE_BATCH, DIST_PROMPT, DIST_NEW = 4, 1024, 32
-DIST_CELLS = (("qwen3_0_6b", "decode_32k"), ("arctic_480b", "train_4k"))
+DIST_CELLS = (("qwen3_0_6b", "decode_32k"), ("arctic_480b", "train_4k"),
+              ("rwkv6_1_6b", "train_4k"))
+# phase sim_benches: the port's twins of the simulator benches in their
+# --tiny modes, each a child on the card (no --device), and the kernels each
+# must have launched there (the tiny chunk is bfs only: no PageRank, no SpMV)
+SIM_BENCHES = (("bench_semexec_torch", ("edge_update",)),
+               ("bench_engine_torch", ("dram_timing",)),
+               ("bench_host_torch", ("dram_timing",)))
 CARD_BYTES = 80e9
 
 
@@ -1755,11 +1760,20 @@ def worker_starts(label: str, t0_wall: float) -> list[dict]:
     """The ``worker_ready`` lines of a server's log: each worker's seconds
     from the server's spawn to ready, its CUDA context and kernel load."""
     out = []
+    decoder = json.JSONDecoder()
     for line in (OUT_DIR / f"serve_{label}.log").read_text().splitlines():
-        if '"event":"worker_ready"' in line:
-            ev = json.loads(line)
-            out.append(dict(ready_s_from_spawn=ev["ts"] - t0_wall,
-                            **{k: ev.get(k) for k in ("context_s", "kernels_s", "built")}))
+        # the spawn workers share the log: two events can land on one line
+        at = line.find("{")
+        while at != -1:
+            try:
+                ev, end = decoder.raw_decode(line, at)
+            except json.JSONDecodeError:
+                at = line.find("{", at + 1)
+                continue
+            if isinstance(ev, dict) and ev.get("event") == "worker_ready":
+                out.append(dict(ready_s_from_spawn=ev["ts"] - t0_wall,
+                                **{k: ev.get(k) for k in ("context_s", "kernels_s", "built")}))
+            at = line.find("{", end)
     return out
 
 
@@ -3479,6 +3493,43 @@ def launch_child(label: str, *args: str) -> dict:
         line for line in proc.stdout.splitlines() if line.startswith(("done:", "moe aux"))])
 
 
+def phase_sim_benches(card: str) -> dict:
+    """``benchmarks/bench_{semexec,engine,host}_torch.py --tiny`` as children
+    on the card (no ``--device``): each must exit 0 (its own equivalence
+    checks passed), match the 8 golden tiny trace hashes where it checks
+    them, and have launched its kernels; the results and logs go to
+    ``chiprun_out/bench_torch/``."""
+    out_dir = OUT_DIR / "bench_torch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    info = {}
+    t_phase = time.perf_counter()
+    for module, kernels in SIM_BENCHES:
+        out = out_dir / f"{module}_tiny.json"
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"benchmarks.{module}", "--tiny",
+                               "--out", str(out)], cwd=ROOT, env=serve_env(),
+                              capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t
+        (out_dir / f"{module}_tiny.log").write_text(proc.stdout + proc.stderr)
+        check(proc.returncode == 0, f"{module} --tiny exited {proc.returncode}: "
+              f"{proc.stdout[-1500:]}{proc.stderr[-1500:]}")
+        res = json.loads(out.read_text())
+        check(res["device"].startswith("cuda") and res["card"], f"{module}: device {res['device']}")
+        if module != "bench_engine_torch":  # its tiny chunk is not the golden one
+            check(res.get("golden_match") == "8/8", f"{module}: golden {res.get('golden_match')}")
+        if module == "bench_semexec_torch":
+            launches = res["launches_per_pass"]
+        else:
+            key = "sequential" if module == "bench_engine_torch" else "overhauled"
+            launches = {"dram_timing": res[key]["dram_timing_launches"]}
+        check(all(launches[k] > 0 for k in kernels), f"{module}: launches {launches}")
+        info[module] = dict(seconds=seconds, launches={k: launches[k] for k in kernels},
+                            golden_match=res.get("golden_match"))
+        emit(dict(phase="sim_benches", bench=module, card=card, **info[module]))
+    info["seconds"] = time.perf_counter() - t_phase
+    return info
+
+
 def phase_train_ft(dev, card: str) -> dict:
     """The fault path at full width: qwen3 cut to 2 layers, then qwen2-moe
     cut to 1 layer and an 8,192-token vocab (the experts in the
@@ -3522,8 +3573,8 @@ def free_port() -> int:
 
 def phase_distributed(dev, card: str) -> dict:
     """The sharded train and serve steps on a 1x1 NCCL mesh against the
-    unsharded ones, B4 on DTensors, and the dry run of two production
-    cells in a child process."""
+    unsharded ones, B4 on DTensors, and the dry run of three production
+    cells, a child each."""
     import statistics
 
     import numpy as np
@@ -3665,19 +3716,27 @@ def phase_distributed(dev, card: str) -> dict:
     finally:
         dist.destroy_process_group()
 
-    # (c) the dry run, in a child: its own fake process group of 256 ranks
+    # (c) the dry run, a child a cell (each its own fake process group of
+    # 256 ranks), all started together
     out_dir = OUT_DIR / "dryrun_smoke"
-    code = ("import sys; from repro_torch.launch import dryrun; rc = 0\n"
-            + "".join(f"rc |= dryrun.main(['--arch', '{a}', '--shape', '{s}', '--mesh', "
-                      f"'single', '--force', '--out', {str(out_dir)!r}])\n"
-                      for a, s in DIST_CELLS)
-            + "sys.exit(rc)\n")
     t = time.perf_counter()
-    child = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                           env=serve_env(), cwd=ROOT, timeout=600)
-    (OUT_DIR / "dryrun_smoke.log").write_text(child.stdout + child.stderr)
-    check(child.returncode == 0, f"the dry run failed: {child.stdout[-2000:]}"
-                                 f"{child.stderr[-2000:]}")
+    children = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a, "--shape", s_,
+         "--mesh", "single", "--force", "--out", str(out_dir)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=serve_env(), cwd=ROOT)
+        for a, s_ in DIST_CELLS]
+    logs = []
+    try:
+        for (a, s_), child in zip(DIST_CELLS, children):
+            log = child.communicate(timeout=600)[0]
+            logs.append(f"== {a} {s_}: exit {child.returncode}\n{log}")
+            check(child.returncode == 0, f"the dry run of {a} {s_} failed: {log[-3000:]}")
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        (OUT_DIR / "dryrun_smoke.log").write_text("\n".join(logs))
     info["dryrun_s"] = time.perf_counter() - t
     cells = {}
     for arch, shape in DIST_CELLS:
@@ -3846,6 +3905,9 @@ def main() -> None:
     # 9. multi-host serving: two worker hosts on the card
     multihost = phase_multihost(graphs, smi)
 
+    # 9b. the port's twins of the simulator benches, as a user runs them
+    sim_benches = phase_sim_benches(smi)
+
     # 10. the LM serving path in f32 against the reference's goldens
     serve_golden = phase_serve_golden(dev)
 
@@ -3899,7 +3961,8 @@ def main() -> None:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, scenarios=rows, device_pairs=device_rows, sweep=sweep,
              search=search, sweep_server=sweep_server, multihost=multihost,
-             serve_golden=serve_golden, serve=serve, serve_families=families,
+             sim_benches=sim_benches, serve_golden=serve_golden, serve=serve,
+             serve_families=families,
              train_golden=train_golden, train=train, train_ft=train_ft,
              train_families=train_families, distributed=distributed,
              kernel_timing=timing, attention_sass=sass),

@@ -109,12 +109,61 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cross-attention; decode caches are sequence-sharded instead)."""
     if constrain_heads and get_policy() is not None and is_dtensor(q):
         return _sdpa_sharded(q, k, v, mask, get_policy())
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _SDPA.apply(q, k, v, mask)
+    return _attend(q, k, v, mask)
+
+
+def _attend(q, k, v, mask):
+    """``_sdpa``'s forward ops."""
     b, sq, nq, hd = q.shape
+    return _weigh(_probs(q, k, mask).to(v.dtype), v).reshape(b, sq, nq * hd)
+
+
+def _probs(q, k, mask):
+    """The f32 softmax of the masked scores, (B, nkv, group, Sq, Sk)."""
     logits = _scores(q, k)
     if mask is not None:
         logits = logits + mask[:, :, None, :, :]
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return _weigh(probs, v).reshape(b, sq, nq * hd)
+    return torch.softmax(logits, dim=-1)
+
+
+class _SDPA(torch.autograd.Function):
+    """``_sdpa`` for training: the same forward ops, saving only q, k, v and
+    the mask, so no (Sq, Sk) tensor of the layer is kept between the
+    passes.  The backward recomputes the probabilities ``Q_CHUNK`` query
+    rows at a time (whole rows, so the same softmax gives the forward's
+    values bit for bit) and takes the softmax backward in f32 as autograd
+    does, dS = P (dP - rowsum(P dP))."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        return _attend(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, mask = ctx.saved_tensors
+        b, sq, nq, hd = q.shape
+        nkv = k.shape[2]
+        scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+        d_out = d_out.reshape(b, sq, nkv, nq // nkv, hd)
+        dq = []
+        dk = dv = None
+        for i in range(0, sq, Q_CHUNK):
+            j = min(i + Q_CHUNK, sq)
+            rows = mask if mask is None or mask.shape[2] == 1 else mask[:, :, i:j]
+            probs = _probs(q[:, i:j], k, rows)
+            do = d_out[:, i:j]
+            dp = torch.einsum("bqkgh,bskh->bkgqs", do, v).float()
+            ds = (torch.ops.aten._softmax_backward_data(dp, probs, -1, torch.float32)
+                  * scale).to(q.dtype)
+            dq.append(torch.einsum("bkgqs,bskh->bqkgh", ds, k).reshape(b, j - i, nq, hd))
+            dk_i = torch.einsum("bkgqs,bqkgh->bskh", ds,
+                                q[:, i:j].reshape(b, j - i, nkv, nq // nkv, hd)).float()
+            dv_i = torch.einsum("bkgqs,bqkgh->bskh", probs.to(v.dtype), do).float()
+            dk, dv = (dk_i, dv_i) if dk is None else (dk + dk_i, dv + dv_i)
+        return torch.cat(dq, dim=1), dk.to(k.dtype), dv.to(v.dtype), None
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

@@ -58,10 +58,40 @@ def embed_init_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale, eps)
+    return _rmsnorm(x, scale, eps)[0]
+
+
+def _rmsnorm(x, scale, eps):
+    """``rmsnorm``'s ops: (out, the f32 reciprocal RMS (..., 1))."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    normed = xf * torch.rsqrt(var + eps)
-    return (normed * scale.float()).to(x.dtype)
+    rstd = torch.rsqrt(var + eps)
+    return (xf * rstd * scale.float()).to(x.dtype), rstd
+
+
+class _RMSNorm(torch.autograd.Function):
+    """``rmsnorm`` for training: the same forward ops, saving x and the f32
+    reciprocal RMS where autograd would keep two f32 copies of x; the
+    backward recomputes the normalised rows:
+    dx = r (dn - n mean(dn n)), n = x r, dn = dy scale."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        out, rstd = _rmsnorm(x, scale, eps)
+        ctx.save_for_backward(x, scale, rstd)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        x, scale, rstd = ctx.saved_tensors
+        normed = x.float() * rstd
+        g = d_out.float()
+        d_scale = (g * normed).sum(dim=tuple(range(g.dim() - 1)))
+        dn = g * scale.float()
+        dx = rstd * (dn - normed * (dn * normed).mean(dim=-1, keepdim=True))
+        return dx.to(x.dtype), d_scale.to(scale.dtype), None
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -7,10 +7,17 @@
   per-channel decay (a matrix-valued state per head), and
   ``rwkv_channel_mix``, the squared-ReLU channel-mix FFN.
 
-Training and prefill run the recurrence as a plain Python loop over the
-sequence, one step of the reference's ``lax.scan`` body per token, with the
-recurrent state in f32 as there.  Decode is the single-step form of the
-same recurrence with the state held in the serving cache.  Leaves that the
+Training and prefill run the recurrence in chunks of ``SCAN_CHUNK``
+tokens, where the reference runs one ``lax.scan`` step a token: every
+chunk's own part in closed form, all chunks at once, then the state carried
+from chunk to chunk in sequence, a few ops a chunk.  ``_rwkv_scan`` takes
+the pairs of a chunk from differences of cumulative log-decays;
+``_mamba_scan``, whose decay differs per (channel, state), takes a
+log-depth scan of (decay, input) pairs inside each chunk and its own
+backward (``_MambaScan``), which keeps only the chunks' input states.  The
+recurrent state is f32 as in the reference, and the results are allclose
+to its ``lax.scan``.  Decode is the single-step form of the same
+recurrence with the state held in the serving cache.  Leaves that the
 reference keeps in f32 in a bf16 model (``A_log``, ``D``, ``mu_*``,
 ``w0``, ``u``, ``ln_x.scale``) are f32 here too.
 """
@@ -128,17 +135,111 @@ def _mamba_ssm_inputs(p: Mamba, cfg, xc: torch.Tensor):
     return F.softplus(dt.float()), bmat.float(), cmat.float()
 
 
+# Tokens a chunk of the chunked scans (``_mamba_scan``, ``_rwkv_scan``).
+SCAN_CHUNK = 32
+
+
+def _chunked(t: torch.Tensor, c: int) -> torch.Tensor:
+    """(B, S, ...) -> (B, N, c, ...), zero-padded at the end to N = ceil(S / c)
+    chunks.  A padded token carries a zero input and a decay of one (zero
+    log-decay), so it changes no real output and no final state."""
+    b, s = t.shape[:2]
+    n = -(-s // c)
+    if n * c != s:
+        t = torch.cat([t, t.new_zeros((b, n * c - s) + t.shape[2:])], dim=1)
+    return t.reshape((b, n, c) + t.shape[2:])
+
+
+def _pair_scan(decay: torch.Tensor, inp: torch.Tensor, dim: int):
+    """Inclusive scan of ``h_t = decay_t * h_{t-1} + inp_t`` from a zero
+    state along ``dim``, in log2(length) steps of (decay, input) pairs
+    (Hillis-Steele).  Returns (the decays' running products, h)."""
+    c = decay.shape[dim]
+    off = 1
+    while off < c:
+        d_cur, d_prev = decay.narrow(dim, off, c - off), decay.narrow(dim, 0, c - off)
+        i_cur, i_prev = inp.narrow(dim, off, c - off), inp.narrow(dim, 0, c - off)
+        inp = torch.cat([inp.narrow(dim, 0, off), d_cur * i_prev + i_cur], dim)
+        decay = torch.cat([decay.narrow(dim, 0, off), d_cur * d_prev], dim)
+        off *= 2
+    return decay, inp
+
+
+def _mamba_pairs(dt, bmat, xcf, a, c: int):
+    """Each token's decay exp(dt a) and input dt x B, (B, N, c, d_in, ds)."""
+    dt, bmat, xcf = (_chunked(t, c) for t in (dt, bmat, xcf))
+    da = torch.exp(dt[..., None] * a)
+    db = (dt * xcf)[..., None] * bmat[..., None, :]
+    return dt, bmat, xcf, da, db
+
+
+def _mamba_states(da, db, h0):
+    """The chunks' local scans, then the state carried through them in
+    sequence from ``h0``: (every token's h (B, N, c, d_in, ds), the
+    chunks' input states (B, N, d_in, ds), the final state)."""
+    prod, loc = _pair_scan(da, db, 2)
+    h_in, h = [], h0
+    for i in range(da.shape[1]):
+        h_in.append(h)
+        h = prod[:, i, -1] * h + loc[:, i, -1]
+    h_in = torch.stack(h_in, dim=1)
+    return loc + prod * h_in[:, :, None], h_in, h
+
+
+class _MambaScan(torch.autograd.Function):
+    """The selective scan in chunks, with its backward: the adjoint of h,
+    ``g_t = dy_t C_t + da_{t+1} g_{t+1}``, is the same scan run backwards
+    (chunks in reverse, each in log depth).  Saves only the inputs and the
+    chunks' input states; the backward recomputes each token's h."""
+
+    @staticmethod
+    def forward(ctx, dt, bmat, cmat, xcf, a):
+        b, s, d_in = xcf.shape
+        c = min(SCAN_CHUNK, s)
+        _, _, _, da, db = _mamba_pairs(dt, bmat, xcf, a, c)
+        h0 = xcf.new_zeros(b, d_in, a.shape[1])
+        h, h_in, h_last = _mamba_states(da, db, h0)
+        y = torch.einsum("bncis,bncs->bnci", h, _chunked(cmat, c))
+        ctx.save_for_backward(dt, bmat, cmat, xcf, a, h_in)
+        return y.reshape(b, -1, d_in)[:, :s], h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        dt, bmat, cmat, xcf, a, h_in = ctx.saved_tensors
+        b, s, d_in = xcf.shape
+        c = min(SCAN_CHUNK, s)
+        dtc, bc, xc, da, db = _mamba_pairs(dt, bmat, xcf, a, c)
+        cc, dyc = _chunked(cmat, c), _chunked(dy, c)
+        prod, loc = _pair_scan(da, db, 2)
+        h = loc + prod * h_in[:, :, None]
+        # g_t = dy_t C_t + da_{t+1} g_{t+1}: flipped, a forward scan whose
+        # decay at the chunk's last token is one (the carry enters there)
+        shifted = torch.cat([da[:, :, 1:], torch.ones_like(da[:, :, :1])], dim=2)
+        rprod, rloc = _pair_scan(shifted.flip(2), (dyc[..., None] * cc[..., None, :]).flip(2), 2)
+        rprod, rloc = rprod.flip(2), rloc.flip(2)
+        carry = [dh_last]
+        for i in range(da.shape[1] - 1, 0, -1):  # into chunk i-1's last token
+            carry.append(da[:, i, 0] * (rloc[:, i, 0] + rprod[:, i, 0] * carry[-1]))
+        g = rloc + rprod * torch.stack(carry[::-1], dim=1)[:, :, None]
+        h_prev = torch.cat([h_in[:, :, None], h[:, :, :-1]], dim=2)
+        gda = g * h_prev * da  # through da = exp(dt a)
+        gb = torch.einsum("bncis,bncs->bnci", g, bc)
+        d_dt = torch.einsum("bncis,is->bnci", gda, a) + gb * xc
+        d_x = gb * dtc
+        d_b = torch.einsum("bncis,bnci->bncs", g, dtc * xc)
+        d_c = torch.einsum("bncis,bnci->bncs", h, dyc)
+        d_a = torch.einsum("bncis,bnci->is", gda, dtc)
+
+        def back(t):
+            return t.reshape((b, -1) + t.shape[3:])[:, :s]
+
+        return back(d_dt), back(d_b), back(d_c), back(d_x), d_a
+
+
 def _mamba_scan(dt, bmat, cmat, xcf, a):
     """The selective scan: dt, xcf (B, S, d_in), bmat, cmat (B, S, ds), a
     (d_in, ds), from a zero state.  Returns (y (B, S, d_in), final h)."""
-    b, s, d_in = xcf.shape
-    h = torch.zeros(b, d_in, a.shape[1], dtype=torch.float32, device=xcf.device)
-    ys = []
-    for i in range(s):
-        dt_t = dt[:, i, :, None]
-        h = torch.exp(dt_t * a) * h + (dt_t * bmat[:, i, None, :]) * xcf[:, i, :, None]
-        ys.append(torch.einsum("bcs,bs->bc", h, cmat[:, i]))
-    return torch.stack(ys, dim=1), h
+    return _MambaScan.apply(dt, bmat, cmat, xcf, a)
 
 
 def _sharded_scan(scan, args: tuple, dims: tuple, out_dims: tuple):
@@ -310,17 +411,50 @@ def _rwkv_out(p: RWKVTimeMix, x: torch.Tensor, y: torch.Tensor, g: torch.Tensor)
     return y @ p.wo
 
 
+def _rwkv_step(r, k, v, w, u, state):
+    """One token of the time mix's recurrence: r, k, v, w (B, nh, hd), u
+    (nh, hd), state (B, nh, hd_k, hd_v).  Returns (y (B, nh, hd), state)."""
+    kv = k[..., :, None] * v[..., None, :]
+    y = torch.einsum("bhk,bhkv->bhv", r, state + u[None, :, :, None] * kv)
+    return y, w[..., :, None] * state + kv
+
+
 def _rwkv_scan(rh, kh, vh, wh, u, state):
     """The time mix's recurrence over (B, S, nh, hd) f32 r, k, v, w, the
-    bonus u (nh, hd) and the state (B, nh, hd, hd).  Returns (y (B, S, nh,
-    hd), final state)."""
-    u = u[None, :, :, None]
-    ys = []
-    for i in range(rh.shape[1]):
-        kv = kh[:, i, :, :, None] * vh[:, i, :, None, :]  # (B, nh, hd_k, hd_v)
-        ys.append(torch.einsum("bhk,bhkv->bhv", rh[:, i], state + u * kv))
-        state = wh[:, i, :, :, None] * state + kv
-    return torch.stack(ys, dim=1), state
+    bonus u (nh, hd) and the state (B, nh, hd_k, hd_v).  Returns (y (B, S,
+    nh, hd), final state).  One token (decode) is one step; a sequence runs
+    in chunks of ``SCAN_CHUNK``: with L_t the cumulative log-decay in the
+    chunk, the pair (s < t) weighs k_s v_s by exp(L_{t-1} - L_s), the token
+    itself by u, and the chunk's input state reaches t through
+    exp(L_{t-1}).  No exponent is positive, so no factor exceeds one."""
+    b, s, nh, hd = rh.shape
+    if s == 1:
+        y, state = _rwkv_step(rh[:, 0], kh[:, 0], vh[:, 0], wh[:, 0], u, state)
+        return y[:, None], state
+    c = min(SCAN_CHUNK, s)
+    # (B, nh, N, c, hd); a decay that underflowed to 0 takes the least normal
+    # f32, so no logarithm is -inf
+    logw = torch.log(wh.clamp_min(torch.finfo(torch.float32).tiny))
+    r, k, v, logw = (_chunked(t, c).permute(0, 3, 1, 2, 4) for t in (rh, kh, vh, logw))
+    lc = logw.cumsum(3)  # L_t
+    lx = torch.cat([torch.zeros_like(lc[..., :1, :]), lc[..., :-1, :]], dim=3)  # L_{t-1}
+    before = torch.ones(c, c, dtype=torch.bool, device=rh.device).tril(-1)[..., None]
+    decay = torch.exp(torch.where(before, lx[..., :, None, :] - lc[..., None, :, :],
+                                  float("-inf")))  # [t, s]: s < t
+    pairs = torch.einsum("bhntsk,bhnsk->bhnts", decay * r[..., :, None, :], k)
+    bonus = (r * u[None, :, None, None, :] * k).sum(-1)
+    y = (pairs + torch.diag_embed(bonus)) @ v
+    # each chunk's own contribution to the state at its end, then the state
+    # carried through the chunks in sequence
+    last = lc[..., -1:, :]
+    kv = (k * torch.exp(last - lc)).transpose(-1, -2) @ v
+    keep = torch.exp(last[..., 0, :, None])
+    s_in = []
+    for i in range(r.shape[2]):
+        s_in.append(state)
+        state = keep[:, :, i] * state + kv[:, :, i]
+    y = y + (r * torch.exp(lx)) @ torch.stack(s_in, dim=2)
+    return y.permute(0, 2, 3, 1, 4).reshape(b, -1, nh, hd)[:, :s], state
 
 
 def rwkv_time_mix(p: RWKVTimeMix, cfg, x: torch.Tensor, x_prev=None, state0=None,

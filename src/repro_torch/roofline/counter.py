@@ -19,9 +19,11 @@ On DTensor arguments the mode steps aside (returns ``NotImplemented``), so
 DTensor desugars the op into the local ops and collectives of this rank,
 which the mode then counts: the numbers are per device, as the
 reference's.  DTensor also runs an op once on fake tensors of the global
-shapes, the first time it sees a signature, to learn the output's shape;
-the counter pauses while DTensor's sharding propagator does so, since
-that work is not the rank's.  Eager execution has no loops to multiply (``n_loops`` 0): a
+shapes, the first time it sees a signature, to learn the output's shape,
+and runs the decomposition of an op without a sharding rule (softplus,
+say) on fake global shapes to find its placements; the counter pauses
+while DTensor's sharding propagator does either, since that work is not
+the rank's.  Eager execution has no loops to multiply (``n_loops`` 0): a
 Python loop of N matmuls is N matmuls.
 
 ``OpCounter`` can also follow the live bytes of the tensors it sees made
@@ -97,21 +99,37 @@ class OpCounter(TorchDispatchMode):
 
     def __enter__(self):
         # pause while DTensor's sharding propagator runs an op on global
-        # fake shapes (its output metadata), which no rank executes
-        from torch.distributed.tensor._sharding_prop import ShardingPropagator
+        # fake shapes (its output metadata, or an op without a rule through
+        # its decomposition), which no rank executes
+        import importlib
+        import inspect
 
-        name = "_propagate_tensor_meta_non_cached"
-        orig = getattr(ShardingPropagator, name)
+        sites = [("torch.distributed.tensor._sharding_prop", "ShardingPropagator",
+                  "_propagate_tensor_meta_non_cached"),
+                 ("torch.distributed.tensor._decompositions", "DecompShardingStrategy",
+                  "propagate_strategy")]
+        patched = []
+        for module, cls_name, name in sites:
+            cls = getattr(importlib.import_module(module), cls_name)
+            raw = inspect.getattr_static(cls, name)  # by version, static or not
+            kind = type(raw) if isinstance(raw, (staticmethod, classmethod)) else None
+            fn = raw.__func__ if kind else raw
 
-        def paused(prop, *args, **kwargs):
-            self._paused += 1
-            try:
-                return orig(prop, *args, **kwargs)
-            finally:
-                self._paused -= 1
+            def paused(*args, _fn=fn, **kwargs):
+                self._paused += 1
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    self._paused -= 1
 
-        setattr(ShardingPropagator, name, paused)
-        self._unpatch = lambda: setattr(ShardingPropagator, name, orig)
+            setattr(cls, name, kind(paused) if kind else paused)
+            patched.append((cls, name, raw))
+
+        def unpatch():
+            for cls, name, raw in patched:
+                setattr(cls, name, raw)
+
+        self._unpatch = unpatch
         return super().__enter__()
 
     def __exit__(self, *exc):

@@ -7,8 +7,9 @@ from the reference's set, and the record's keys; ``benchmarks/run_torch.py
 --benches roofline`` summarises it.  On it and on ``train_4k`` the
 counted FLOPs per device are within ``FLOPS_TOL`` of a closed-form
 reckoning from the config (every matmul of the step, 256-way sharded; in
-training the blocks three times under remat plus their backward, the
-unembedding once plus its backward): a product that DTensor runs on the
+training the blocks three times under remat plus their backward, whose
+attention recomputes QK^T, and the unembedding once plus its backward): a
+product that DTensor runs on the
 whole batch or on every "model" column of a rank counts many times over.
 Without a card and without ``--device`` the CLI exits 2.
 """
@@ -70,24 +71,26 @@ def test_dryrun_cli_single_cell(decode_cell):
     assert validation["roofline_cells"] == 1
 
 
-def _closed_form_forward_flops(cfg, b: int, sq: int, sk: int) -> tuple[float, float]:
+def _closed_form_forward_flops(cfg, b: int, sq: int, sk: int) -> tuple[float, float, float]:
     """Matmul FLOPs of a dense config's forward of ``b`` sequences of ``sq``
-    queries over ``sk`` keys, whole: (blocks, unembedding)."""
+    queries over ``sk`` keys, whole: (the blocks' weight products, their
+    attention products QK^T and PV, the unembedding)."""
     d, hd, nq, nkv, ff, layers = (cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads,
                                   cfg.d_ff, cfg.n_layers)
     vocab = -(-cfg.vocab // 256) * 256
     tokens = b * sq
     per_layer = d * nq * hd + 2 * d * nkv * hd + nq * hd * d + 3 * d * ff
-    blocks = 2 * tokens * per_layer * layers + 4 * b * nq * sq * sk * hd * layers
-    return blocks, 2 * tokens * d * vocab
+    attention = 4 * b * nq * sq * sk * hd * layers
+    return 2 * tokens * per_layer * layers, attention, 2 * tokens * d * vocab
 
 
 def _closed_form_train_flops(cfg, shape) -> float:
-    """Matmul FLOPs of one train step of a dense config, per device of 256."""
+    """Matmul FLOPs of one train step of a dense config, per device of 256:
+    forward, recompute (remat) and a backward of twice the forward, and
+    the attention backward's recomputed QK^T (half of its forward)."""
     s = shape.seq_len
-    blocks, unembed = _closed_form_forward_flops(cfg, shape.global_batch, s, s)
-    # forward, recompute (remat) and a backward of twice the forward
-    return (4 * blocks + 3 * unembed) / 256
+    dense, attention, unembed = _closed_form_forward_flops(cfg, shape.global_batch, s, s)
+    return (4 * dense + 4.5 * attention + 3 * unembed) / 256
 
 
 def test_decode_cell_flops_match_a_closed_form(decode_cell):
@@ -110,6 +113,19 @@ def test_train_cell_flops_match_a_closed_form(tmp_path):
     got = rec["op_analysis"]["flops_per_device"]
     assert abs(got - want) <= FLOPS_TOL * want, (got, want)
     assert rec["op_analysis"]["collective_bytes_per_device"] > 0
+
+
+def test_scan_train_cell_finishes(tmp_path):
+    """``rwkv6_1_6b train_4k``: 4,096 tokens a sequence through 24 layers of
+    the time mix, forward, remat and backward, on 256 fake ranks; with the
+    per-token scan it did not finish in 600 s on the card's machine."""
+    out = _dryrun(tmp_path, "--arch", "rwkv6_1_6b", "--shape", "train_4k", "--mesh",
+                  "single", "--device", "cpu")
+    assert out.returncode == 0, out.stderr[-3000:]
+    rec = json.load(open(tmp_path / "single" / "rwkv6_1_6b__train_4k.json"))
+    assert rec["status"] == "ok" and rec["step_kind"] == "train_step"
+    assert rec["op_analysis"]["flops_per_device"] > 0
+    assert 0 < rec["memory"]["peak_bytes"] < 80e9
 
 
 def test_dryrun_without_a_card_or_device_exits_2(tmp_path):

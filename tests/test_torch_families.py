@@ -133,7 +133,8 @@ def test_moe_capacity_and_groups_match_reference():
 # ---------------- SSM mixers --------------------------------------------------
 
 
-@pytest.mark.parametrize("s", [2, 24])  # shorter than the conv window, and longer
+# shorter than the conv window, longer, and three chunks of the scan and a ragged fourth
+@pytest.mark.parametrize("s", [2, 24, 3 * ssm.SCAN_CHUNK + 5])
 def test_mamba_matches_reference(s):
     ref_cfg, cfg = _configs("jamba_v0_1_52b")
     tree, model = _carry(cfg, 13)
@@ -182,6 +183,175 @@ def test_rwkv_time_mix_matches_reference():
         _close(got, want, f"decode {i}")
         for key in ("s", "x_prev"):
             _close(state[key], wstate[key], f"decode {i} {key}")
+
+
+LONG = 3 * ssm.SCAN_CHUNK + 5  # three chunks of the scans and a ragged fourth
+
+
+def test_rwkv_time_mix_over_chunks_matches_reference():
+    ref_cfg, cfg = _configs("rwkv6_1_6b")
+    tree, model = _carry(cfg, 19)
+    p, rp = model.blocks[0].mixer, _at(tree["blocks"][0]["mixer"])
+    nh, hd = ssm.rwkv_dims(cfg)
+    rng = np.random.default_rng(20)
+    x = rng.standard_normal((2, LONG + 2, cfg.d_model)).astype(np.float32)
+    x_prev = rng.standard_normal((2, cfg.d_model)).astype(np.float32)
+    s0 = (0.1 * rng.standard_normal((2, nh, hd, hd))).astype(np.float32)
+    want, wstate = ref_ssm.rwkv_time_mix(rp, ref_cfg, jnp.asarray(x[:, :LONG]),
+                                         return_state=True)
+    got, state = ssm.rwkv_time_mix(p, cfg, torch.from_numpy(x[:, :LONG]), return_state=True)
+    _close(got, want, "from zeros")
+    _close(state["s"], wstate["s"], "from zeros, state")
+    want, wstate = ref_ssm.rwkv_time_mix(rp, ref_cfg, jnp.asarray(x[:, :LONG]),
+                                         jnp.asarray(x_prev), jnp.asarray(s0),
+                                         return_state=True)
+    got, state = ssm.rwkv_time_mix(p, cfg, torch.from_numpy(x[:, :LONG]),
+                                   torch.from_numpy(x_prev), torch.from_numpy(s0),
+                                   return_state=True)
+    _close(got, want, "from a state")
+    _close(state["s"], wstate["s"], "from a state, state")
+    for i in range(LONG, LONG + 2):
+        want, wstate = ref_ssm.rwkv_time_mix_decode(rp, ref_cfg, jnp.asarray(x[:, i:i + 1]),
+                                                    wstate)
+        got, state = ssm.rwkv_time_mix_decode(p, cfg, torch.from_numpy(x[:, i:i + 1]), state)
+        _close(got, want, f"decode {i}")
+        _close(state["s"], wstate["s"], f"decode {i} state")
+
+
+def _probe(rng, shape) -> np.ndarray:
+    """A random projection of an output, scaled so that the loss it makes
+    has gradients of order one (a plain sum over 2 x LONG x d outputs puts
+    them near 100, where f32's own rounding is ~1e-4)."""
+    return (rng.standard_normal(shape) / np.sqrt(np.prod(shape))).astype(np.float32)
+
+
+def _scan_inputs(arch: str, seed: int, s: int):
+    ref_cfg, cfg = _configs(arch)
+    tree, model = _carry(cfg, seed)
+    p, rp = model.blocks[0].mixer, _at(tree["blocks"][0]["mixer"])
+    rng = np.random.default_rng(seed + 1)
+    x = rng.standard_normal((2, s, cfg.d_model)).astype(np.float32)
+    return ref_cfg, cfg, p, rp, rng, x
+
+
+def test_ssm_strong_decay_is_finite_and_matches_reference():
+    """Decays that underflow: mamba's dt large (exp(dt a) near 0) and
+    rwkv's w near and at 0 (w0 large: exp(-exp(w0)) underflows)."""
+    ref_cfg, cfg, p, rp, _, x = _scan_inputs("jamba_v0_1_52b", 21, LONG)
+    with torch.no_grad():
+        p.dt_bias.fill_(30.0)
+    rp = dict(rp, dt_bias=jnp.full_like(rp["dt_bias"], 30.0))
+    got = ssm.mamba(p, cfg, torch.from_numpy(x))
+    assert torch.isfinite(got).all()
+    _close(got, ref_ssm.mamba(rp, ref_cfg, jnp.asarray(x)), "mamba, strong decay")
+    ref_cfg, cfg, p, rp, rng, x = _scan_inputs("rwkv6_1_6b", 23, LONG)
+    w0 = rng.uniform(0.0, 6.0, p.w0.shape).astype(np.float32)
+    with torch.no_grad():
+        p.w0.copy_(torch.from_numpy(w0))
+    rp = dict(rp, w0=jnp.asarray(w0))
+    xt = torch.from_numpy(x).requires_grad_()
+    got = ssm.rwkv_time_mix(p, cfg, xt)
+    assert torch.isfinite(got).all()
+    _close(got, ref_ssm.rwkv_time_mix(rp, ref_cfg, jnp.asarray(x)), "rwkv, strong decay")
+    got.square().sum().backward()
+    assert torch.isfinite(xt.grad).all()
+    assert all(torch.isfinite(t.grad).all() for t in p.parameters())
+
+
+def _grads_close(p, x_grads: dict, ref_grads: dict, want_params: dict, msg: str) -> None:
+    for name, t in p.named_parameters():
+        want = want_params
+        for key in name.split("."):
+            want = want[key]
+        _close(t.grad, want, f"{msg}: d {name}", tol=GRAD_TOL)
+    for key, g in x_grads.items():
+        _close(g, ref_grads[key], f"{msg}: d {key}", tol=GRAD_TOL)
+
+
+def test_mamba_gradients_match_reference():
+    ref_cfg, cfg, p, rp, rng, x = _scan_inputs("jamba_v0_1_52b", 25, LONG)
+    probe = _probe(rng, (2, LONG, cfg.d_model))
+    probe_h = _probe(rng, (2,) + p.A_log.shape)
+
+    def ref_loss(params, x):
+        out, st = ref_ssm.mamba(params, ref_cfg, x, return_state=True)
+        return jnp.sum(out * probe) + jnp.sum(st["h"] * probe_h)
+
+    gp, gx = jax.grad(ref_loss, argnums=(0, 1))(rp, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    out, st = ssm.mamba(p, cfg, xt, return_state=True)
+    ((out * torch.from_numpy(probe)).sum() + (st["h"] * torch.from_numpy(probe_h)).sum()).backward()
+    _grads_close(p, {"x": xt.grad}, {"x": gx}, gp, "mamba")
+
+
+@pytest.mark.parametrize("from_state", [False, True])
+def test_rwkv_time_mix_gradients_match_reference(from_state):
+    ref_cfg, cfg, p, rp, rng, x = _scan_inputs("rwkv6_1_6b", 27, LONG)
+    nh, hd = ssm.rwkv_dims(cfg)
+    probe, probe_s = _probe(rng, (2, LONG, cfg.d_model)), _probe(rng, (2, nh, hd, hd))
+    x_prev = rng.standard_normal((2, cfg.d_model)).astype(np.float32)
+    s0 = (0.1 * rng.standard_normal((2, nh, hd, hd))).astype(np.float32)
+    extra = (x_prev, s0) if from_state else ()
+
+    def ref_loss(params, x, *extra):
+        out, st = ref_ssm.rwkv_time_mix(params, ref_cfg, x, *extra, return_state=True)
+        return jnp.sum(out * probe) + jnp.sum(st["s"] * probe_s)
+
+    grads = jax.grad(ref_loss, argnums=tuple(range(2 + len(extra))))(
+        rp, jnp.asarray(x), *map(jnp.asarray, extra))
+    ts = [torch.from_numpy(t).requires_grad_() for t in (x, *extra)]
+    out, st = ssm.rwkv_time_mix(p, cfg, *ts, return_state=True)
+    ((out * torch.from_numpy(probe)).sum() + (st["s"] * torch.from_numpy(probe_s)).sum()).backward()
+    names = ("x", "x_prev", "state0")[:len(ts)]
+    _grads_close(p, {k: t.grad for k, t in zip(names, ts)}, dict(zip(names, grads[1:])),
+                 grads[0], "rwkv")
+
+
+class _OpCount(torch.utils._python_dispatch.TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _scan_op_counts(scan, args) -> tuple[int, int]:
+    """Ops dispatched by ``scan(*args)``'s forward and by its backward."""
+    args = [a.requires_grad_() for a in args]
+    with _OpCount() as fwd:
+        outs = scan(*args)
+    loss = sum(o.sum() for o in outs)
+    with _OpCount() as bwd:
+        loss.backward()
+    return fwd.n, bwd.n
+
+
+# ops a chunk the scans may dispatch, forward or backward, over 4 chunks or
+# more: ~100-250 set-up ops amortised, then 3-9 a chunk.  A per-token loop
+# dispatches at least 6 a token, 6 x SCAN_CHUNK = 192 a chunk.
+OPS_PER_CHUNK = 64
+
+
+@pytest.mark.parametrize("chunks", [4, 16])
+def test_scans_dispatch_a_bounded_count_of_ops_a_chunk(chunks):
+    c = ssm.SCAN_CHUNK
+    assert c >= 16
+    s = chunks * c
+    rng = np.random.default_rng(29)
+
+    def f32(*shape, lo=-1.0, hi=1.0):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32))
+
+    b, nh, hd, d_in, ds = 2, 2, 8, 8, 4
+    rwkv = (f32(b, s, nh, hd), f32(b, s, nh, hd), f32(b, s, nh, hd),
+            f32(b, s, nh, hd, lo=0.5, hi=1.0), f32(nh, hd), f32(b, nh, hd, hd))
+    mamba = (f32(b, s, d_in, lo=0.0, hi=0.5), f32(b, s, ds), f32(b, s, ds), f32(b, s, d_in),
+             f32(d_in, ds, lo=-2.0, hi=-0.5))
+    for name, scan, args in (("rwkv", ssm._rwkv_scan, rwkv), ("mamba", ssm._mamba_scan, mamba)):
+        for part, n in zip(("forward", "backward"), _scan_op_counts(scan, args)):
+            assert n <= OPS_PER_CHUNK * chunks, (name, part, n, s)
 
 
 def test_rwkv_channel_mix_matches_reference():
