@@ -138,6 +138,22 @@ Phases, one JSON line each on stdout:
               registration and to its seat's ``worker_ready`` (context and
               kernel load), each job's wall, rows/s, chunks by host and
               launches.  Logs in ``chiprun_out/multihost_*.log``.
+9b. sim_benches -- the port's bench twins in their ``--tiny`` modes as
+              children on the card (no ``--device``): ``benchmarks/bench_{
+              semexec,engine,host,memory,partition,search,serve}_torch.py``.
+              Each must exit 0 (its own checks passed), match the 8 golden
+              tiny trace hashes where it checks them, and have launched its
+              kernel (B1; B2 for semexec) on the card.  Results and logs in
+              ``chiprun_out/bench_torch/``.
+9c. examples -- ``examples/{quickstart,dram_study,serve_lm,train_lm}_torch.py``
+              in this process on the card at the reference scripts' sizes
+              (R-MAT scale 13, ``social20k``, the reduced qwen3) but
+              train_lm's, cut from 200 steps to 40:
+              each must return 0; quickstart's four accelerators must print
+              OK against the reference solver; quickstart and dram_study
+              must launch B1, serve_lm B4; train_lm's restart must resume
+              and end at a finite loss.  Their output in
+              ``chiprun_out/examples_<name>.log``.
 10. serve_golden -- the LM serving path in f32 on the card against
               ``tests/data/torch_golden_serve.json`` (written from the JAX
               reference): ``qwen3_0_6b.reduced()`` and qwen3 at full width
@@ -229,12 +245,12 @@ Phases, one JSON line each on stdout:
               kernels over 3 steady steps (``torch.profiler``),
               the checkpoint's bytes, save and restore seconds.
 15. train_ft -- the fault path at full width: qwen3 cut to 2 layers (4 x
-              256 tokens, 12 steps, sync checkpoints every 4 steps, ~1.9 GB
+              256 tokens, 8 steps, sync checkpoints every 4 steps, ~1.9 GB
               each, under ``build/``), then qwen2-moe cut to 1 layer and an
               8,192-token vocab (60 experts of (2,048, 1,408), bf16 stored
               as ``uint16``; ~6 GB a checkpoint): failures injected at steps
-              5 and 9 must end with parameters and moments bit-equal to a
-              clean run (checkpointed at its end only).
+              5 and 7 (each restores step 4) must end with parameters and
+              moments bit-equal to a clean run (which writes no checkpoint).
               ``torch.use_deterministic_algorithms`` is on for this phase
               only (the embedding's scatter-add backward is otherwise
               atomic); ``CUBLAS_WORKSPACE_CONFIG`` is set before torch
@@ -297,7 +313,8 @@ Phases, one JSON line each on stdout:
 18. kernels -- one line per ported kernel: launches on its path (and in
               the sweep's engines run, ``sweep_launches``, in the sweep
               server's workers, ``served_launches``, in the multi-host
-              phase's hosts, ``multihost_launches``, and for attention in
+              phase's hosts, ``multihost_launches``, in phase examples,
+              ``examples_launches``, and for attention in
               phase train's steps, ``train_launches`` (0), its serving
               of the trained weights, ``train_serve_launches``, phase
               serve_families' runs, ``families_launches``, and phase
@@ -447,8 +464,8 @@ TRAIN_DATA_VOCAB = 8192
 TRAIN_SPLIT_STEPS, TRAIN_PROFILE_STEPS = 3, 3  # steady steps split / profiled
 TRAIN_SERVE_ROWS = 2  # rows of a batch the trained weights serve
 # phase train_ft: full width cut to 2 layers (a checkpoint is ~1.9 GB)
-FT_LAYERS, FT_BATCH, FT_SEQ, FT_STEPS, FT_EVERY = 2, 4, 256, 12, 4
-FT_FAILURES = (5, 9)
+FT_LAYERS, FT_BATCH, FT_SEQ, FT_STEPS, FT_EVERY = 2, 4, 256, 8, 4
+FT_FAILURES = (5, 7)  # both restore step 4's checkpoint
 LAUNCH_STEPS = 4
 # phase train_ft's MoE resume: qwen2-moe at full width cut to 1 layer and an
 # 8,192-token vocab (bf16 weights, f32 m and v: a checkpoint is ~6 GB); then
@@ -484,12 +501,23 @@ DIST_LOGIT_TOL = 2e-2  # bf16 logits of two runs of the same ops, stated as ATTN
 DIST_SERVE_BATCH, DIST_PROMPT, DIST_NEW = 4, 1024, 32
 DIST_CELLS = (("qwen3_0_6b", "decode_32k"), ("arctic_480b", "train_4k"),
               ("rwkv6_1_6b", "train_4k"))
-# phase sim_benches: the port's twins of the simulator benches in their
-# --tiny modes, each a child on the card (no --device), and the kernels each
-# must have launched there (the tiny chunk is bfs only: no PageRank, no SpMV)
+# phase sim_benches: the port's bench twins in their --tiny modes, each a
+# child on the card (no --device), and the kernels each must have launched
+# there (the tiny grids are bfs only: no PageRank, no SpMV)
 SIM_BENCHES = (("bench_semexec_torch", ("edge_update",)),
                ("bench_engine_torch", ("dram_timing",)),
-               ("bench_host_torch", ("dram_timing",)))
+               ("bench_host_torch", ("dram_timing",)),
+               ("bench_memory_torch", ("dram_timing",)),
+               ("bench_partition_torch", ("dram_timing",)),
+               ("bench_search_torch", ("dram_timing",)),
+               ("bench_serve_torch", ("dram_timing",)))
+# phase examples: each example, its arguments (train_lm cut from its 200
+# steps to 40: a checkpoint at 20 and the restart from it) and the kernels
+# it must launch
+EXAMPLES = (("quickstart_torch", (), ("dram_timing",)),
+            ("dram_study_torch", (), ("dram_timing",)),
+            ("serve_lm_torch", (), ("attention",)),
+            ("train_lm_torch", ("--steps", "40"), ()))
 CARD_BYTES = 80e9
 
 
@@ -3385,9 +3413,9 @@ def phase_train_families(dev, card: str) -> dict:
 def supervised_resume(dev, cfg, source, label: str) -> dict:
     """``cfg`` through ``run_supervised`` for ``FT_STEPS`` steps with sync
     checkpoints every ``FT_EVERY`` steps (under ``build/``) and failures
-    injected at ``FT_FAILURES``, then again with no failure and a checkpoint
-    only at the end: parameters and moments must be bit-equal.  Run under
-    deterministic algorithms."""
+    injected at ``FT_FAILURES``, then again with no failure and no
+    checkpoint written: parameters and moments must be bit-equal.  Run
+    under deterministic algorithms."""
     import shutil
 
     import torch
@@ -3401,7 +3429,7 @@ def supervised_resume(dev, cfg, source, label: str) -> dict:
     tcfg = TrainConfig(optimizer=opt.OptimizerConfig(
         lr=TRAIN_LR, warmup_steps=2, total_steps=FT_STEPS))
 
-    def run(run_label: str, failures: set, every: int):
+    def run(run_label: str, failures: set, every: int, write: bool = True):
         model = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
         state = opt.init(tcfg.optimizer, dict(model.named_parameters()))
         directory = ROOT / "build" / f"train_ft_{label}_{run_label}"
@@ -3411,8 +3439,9 @@ def supervised_resume(dev, cfg, source, label: str) -> dict:
         save = ckpt.save
 
         def counted_save(step, tree, meta=None):
-            save(step, tree, meta)
-            saves.append(dict(ckpt.last_save))
+            if write:
+                save(step, tree, meta)
+                saves.append(dict(ckpt.last_save))
 
         ckpt.save = counted_save
 
@@ -3441,7 +3470,8 @@ def supervised_resume(dev, cfg, source, label: str) -> dict:
         steps = [s for s, _ in history]
         check(steps[-1] == FT_STEPS and set(range(1, FT_STEPS + 1)) <= set(steps),
               f"{label}: supervised steps {steps}")
-        clean_model, clean_state, clean_history, clean = run("clean", set(), FT_STEPS)
+        clean_model, clean_state, clean_history, clean = run("clean", set(), FT_STEPS,
+                                                             write=False)
     finally:
         torch.use_deterministic_algorithms(False)
     for (name, a), b in zip(model.named_parameters(), clean_model.parameters()):
@@ -3493,39 +3523,122 @@ def launch_child(label: str, *args: str) -> dict:
         line for line in proc.stdout.splitlines() if line.startswith(("done:", "moe aux"))])
 
 
+def bench_launches(module: str, res: dict) -> dict:
+    """The kernel launches a bench twin's ``--tiny`` result records."""
+    if module == "bench_semexec_torch":
+        return res["launches_per_pass"]
+    if module in ("bench_engine_torch", "bench_host_torch"):
+        key = "sequential" if module == "bench_engine_torch" else "overhauled"
+        return {"dram_timing": res[key]["dram_timing_launches"]}
+    if module == "bench_search_torch":
+        return {"dram_timing": res["dram_timing_launches"]}
+    return res["launches"]
+
+
+def bench_golden(module: str, res: dict) -> str | None:
+    """How many of the 8 golden tiny trace hashes a bench twin's result
+    matched, as "n/8"; None for the twins that check none (engine: its
+    tiny chunk is not the golden one; memory: no trace hashes)."""
+    if module in ("bench_semexec_torch", "bench_host_torch"):
+        return res.get("golden_match")
+    if module == "bench_partition_torch":
+        return f"{res['golden_identity_hashes_checked']}/8"
+    if module in ("bench_search_torch", "bench_serve_torch"):
+        return f"{res['golden_hashes_checked']}/8" if res["golden_ok"] else "mismatch"
+    return None
+
+
 def phase_sim_benches(card: str) -> dict:
-    """``benchmarks/bench_{semexec,engine,host}_torch.py --tiny`` as children
-    on the card (no ``--device``): each must exit 0 (its own equivalence
-    checks passed), match the 8 golden tiny trace hashes where it checks
-    them, and have launched its kernels; the results and logs go to
-    ``chiprun_out/bench_torch/``."""
+    """The bench twins ``--tiny`` (``SIM_BENCHES``) as children on the card
+    (no ``--device``), all started together: each must exit 0 (its own
+    equivalence checks passed), match the 8 golden tiny trace hashes where
+    it checks them, and have launched its kernels; the results and logs go
+    to ``chiprun_out/bench_torch/``."""
     out_dir = OUT_DIR / "bench_torch"
     out_dir.mkdir(parents=True, exist_ok=True)
     info = {}
     t_phase = time.perf_counter()
-    for module, kernels in SIM_BENCHES:
-        out = out_dir / f"{module}_tiny.json"
-        t = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", f"benchmarks.{module}", "--tiny",
-                               "--out", str(out)], cwd=ROOT, env=serve_env(),
-                              capture_output=True, text=True, timeout=600)
-        seconds = time.perf_counter() - t
-        (out_dir / f"{module}_tiny.log").write_text(proc.stdout + proc.stderr)
-        check(proc.returncode == 0, f"{module} --tiny exited {proc.returncode}: "
-              f"{proc.stdout[-1500:]}{proc.stderr[-1500:]}")
-        res = json.loads(out.read_text())
+    children = [subprocess.Popen([sys.executable, "-m", f"benchmarks.{module}", "--tiny",
+                                  "--out", str(out_dir / f"{module}_tiny.json")], cwd=ROOT,
+                                 env=serve_env(), stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+                for module, _ in SIM_BENCHES]
+    try:
+        logs = [child.communicate(timeout=600)[0] for child in children]
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    for (module, kernels), child, log in zip(SIM_BENCHES, children, logs):
+        (out_dir / f"{module}_tiny.log").write_text(log)
+        check(child.returncode == 0, f"{module} --tiny exited {child.returncode}: {log[-3000:]}")
+        res = json.loads((out_dir / f"{module}_tiny.json").read_text())
         check(res["device"].startswith("cuda") and res["card"], f"{module}: device {res['device']}")
-        if module != "bench_engine_torch":  # its tiny chunk is not the golden one
-            check(res.get("golden_match") == "8/8", f"{module}: golden {res.get('golden_match')}")
-        if module == "bench_semexec_torch":
-            launches = res["launches_per_pass"]
-        else:
-            key = "sequential" if module == "bench_engine_torch" else "overhauled"
-            launches = {"dram_timing": res[key]["dram_timing_launches"]}
+        golden = bench_golden(module, res)
+        check(golden in (None, "8/8"), f"{module}: golden {golden}")
+        launches = bench_launches(module, res)
         check(all(launches[k] > 0 for k in kernels), f"{module}: launches {launches}")
-        info[module] = dict(seconds=seconds, launches={k: launches[k] for k in kernels},
-                            golden_match=res.get("golden_match"))
+        info[module] = dict(launches={k: launches[k] for k in kernels}, golden_match=golden)
         emit(dict(phase="sim_benches", bench=module, card=card, **info[module]))
+    info["seconds"] = time.perf_counter() - t_phase
+    return info
+
+
+def phase_examples(card: str) -> dict:
+    """The examples (``EXAMPLES``) in this process on the card, as a user
+    runs them (no ``--device``): each ``main`` must return 0 and launch its
+    kernels (counts reset before each); quickstart's accelerators must all
+    agree with the reference solver, and train_lm's restart must resume and
+    end at a finite loss.  Their output goes to
+    ``chiprun_out/examples_<name>.log``; the phase returns each one's
+    seconds, launches and printed lines."""
+    import contextlib
+    import importlib.util
+    import io
+    import math
+    import os
+    import shutil
+
+    from repro_torch.kernels._platform import LAUNCHES, reset_launches
+
+    info = {}
+    t_phase = time.perf_counter()
+    cwd = os.getcwd()
+    os.chdir(ROOT / "build")  # train_lm's checkpoints go under build/results/
+    try:
+        for name, args, kernels in EXAMPLES:
+            spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            reset_launches()
+            out = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = module.main(list(args))
+            seconds = time.perf_counter() - t
+            launches = dict(LAUNCHES)
+            lines = out.getvalue().splitlines()
+            (OUT_DIR / f"examples_{name}.log").write_text(out.getvalue())
+            check(rc == 0, f"{name} returned {rc}: {lines[-10:]}")
+            check(all(launches[k] > 0 for k in kernels), f"{name}: launches {launches}")
+            if name == "quickstart_torch":
+                rows = [line for line in lines if line.endswith(("OK", "MISMATCH"))]
+                check(len(rows) == 4 and all(r.endswith("OK") for r in rows),
+                      f"quickstart: {rows}")
+            if name == "serve_lm_torch":
+                check(lines[0].startswith("served 10 requests, 120 tokens"), lines[0])
+            if name == "train_lm_torch":
+                check(any(line.startswith("[ft] resumed from checkpoint") for line in lines),
+                      f"train_lm: no restart in {lines[-6:]}")
+                last = lines[-1].split("last loss ")[1].split()[0]
+                check(math.isfinite(float(last)), f"train_lm: {lines[-1]}")
+            info[name] = dict(seconds=seconds, launches=launches, lines=lines)
+            emit(dict(phase="examples", example=name, card=card, seconds=seconds,
+                      launches=launches, last_lines=lines[-3:]))
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(ROOT / "build" / "results", ignore_errors=True)
     info["seconds"] = time.perf_counter() - t_phase
     return info
 
@@ -3905,8 +4018,11 @@ def main() -> None:
     # 9. multi-host serving: two worker hosts on the card
     multihost = phase_multihost(graphs, smi)
 
-    # 9b. the port's twins of the simulator benches, as a user runs them
+    # 9b. the port's bench twins, as a user runs them
     sim_benches = phase_sim_benches(smi)
+
+    # 9c. the port's examples at the reference scripts' sizes
+    examples = phase_examples(smi)
 
     # 10. the LM serving path in f32 against the reference's goldens
     serve_golden = phase_serve_golden(dev)
@@ -3961,7 +4077,8 @@ def main() -> None:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, scenarios=rows, device_pairs=device_rows, sweep=sweep,
              search=search, sweep_server=sweep_server, multihost=multihost,
-             sim_benches=sim_benches, serve_golden=serve_golden, serve=serve,
+             sim_benches=sim_benches, examples=examples, serve_golden=serve_golden,
+             serve=serve,
              serve_families=families,
              train_golden=train_golden, train=train, train_ft=train_ft,
              train_families=train_families, distributed=distributed,
@@ -3982,6 +4099,7 @@ def main() -> None:
         sweep_launches=sweep["launches"][name],
         served_launches=sweep_server["served_launches"][name],
         multihost_launches=multihost["multihost_launches"][name],
+        examples_launches=sum(examples[e]["launches"][name] for e, _, _ in EXAMPLES),
         **({"train_launches": train["train_launches"],
             "train_serve_launches": train["serve_launches"],
             "families_launches": families_launches,

@@ -91,10 +91,11 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``_register_dtensor_rule``) runs it on each rank's shard: the kernel
     on the card, the plain version on the CPU.  Anything else raises."""
     _check(q, k, v)
+    from torch._subclasses.fake_tensor import FakeTensor
     from torch.distributed.tensor import DTensor
 
     dtensor = isinstance(q, DTensor)
-    if q.device.type == "cpu" and not dtensor:
+    if q.device.type == "cpu" and not dtensor and not isinstance(q, FakeTensor):
         return attention_plain(q, k, v, causal=causal)
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {q.device}")

@@ -123,6 +123,7 @@ def lower_cell(arch_id: str, shape_name: str, multi_pod: bool, device: str = "cu
     "skipped" with the reason)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
+    from repro_torch.distributed.sharding import place_tree
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.serve.legacy.serve_step import jit_serve_steps
     from repro_torch.train.train_step import TrainConfig, jit_train_step
@@ -154,10 +155,14 @@ def lower_cell(arch_id: str, shape_name: str, multi_pod: bool, device: str = "cu
             step_kind, flops_kind = "train_step", "train"
             tokens = shape.global_batch * shape.seq_len
         else:
-            prefill, decode, _ = jit_serve_steps(model, mesh, shape.global_batch, shape.seq_len,
-                                                 batch_example=specs)
-            cache = model.init_cache(shape.global_batch, shape.seq_len)
-            counter.track(list(model.parameters()))
+            prefill, decode, cache_pl = jit_serve_steps(model, mesh, shape.global_batch,
+                                                        shape.seq_len, batch_example=specs)
+            # the cache is an argument placed before the step, as the
+            # reference's in_shardings take it: prefill and decode find it
+            # placed and copy nothing
+            cache = place_tree(model.init_cache(shape.global_batch, shape.seq_len), mesh,
+                               cache_pl)
+            counter.track([list(model.parameters()), cache])
             argument_bytes = counter.live_bytes
             setup_s = time.perf_counter() - t0
             with counter:

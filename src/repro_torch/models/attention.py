@@ -105,10 +105,11 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, Sq, nq, hd); k, v: (B, Sk, nkv, hd); nq = nkv * group.
     mask: additive, broadcastable to (B, 1, Sq, Sk), or None.
     constrain_heads: under a policy, on DTensors, attend head-parallel on
-    each rank's shard (``_sdpa_sharded``: training, prefill and
+    each rank's shard (``_head_parallel``: training, prefill and
     cross-attention; decode caches are sequence-sharded instead)."""
     if constrain_heads and get_policy() is not None and is_dtensor(q):
-        return _sdpa_sharded(q, k, v, mask, get_policy())
+        return _head_parallel(lambda q_, k_, v_: _sdpa(q_, k_, v_, mask), q, k, v,
+                              get_policy())
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _SDPA.apply(q, k, v, mask)
     return _attend(q, k, v, mask)
@@ -183,11 +184,12 @@ def _weigh(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
 
 
-def _sdpa_sharded(q, k, v, mask, pol) -> torch.Tensor:
-    """``_sdpa`` head-parallel through ``local_map``: every rank attends
-    with its rows of the batch (over the batch axes that divide it) and its
-    heads (over "model"), so forward and backward stay local, as the
-    reference pins them with its ``attn_q``/``attn_kv`` constraints.  Where
+def _head_parallel(attend_fn, q, k, v, pol) -> torch.Tensor:
+    """``attend_fn(q, k, v)`` (a (B, Sq, nq * hd) result) head-parallel
+    through ``local_map``: every rank attends with its rows of the batch
+    (over the batch axes that divide it) and its heads (over "model"), so
+    forward and backward stay local, as the reference pins them with its
+    ``attn_q``/``attn_kv`` constraints.  Where
     the kv heads do not divide the model axis (qwen3's 8 on 16), K/V are
     repeated to the query heads, each query head with its own copy; where
     the query heads do not either (arctic's 56 on 16), the heads are padded
@@ -214,7 +216,7 @@ def _sdpa_sharded(q, k, v, mask, pol) -> torch.Tensor:
     def attend_local(q_, k_, v_):
         if mesh.size() > 1:  # one rank's gradients are the whole ones, as laid out
             q_, k_, v_ = (contiguous_grad(t) for t in (q_, k_, v_))
-        return _sdpa(q_, k_, v_, mask).contiguous()
+        return attend_fn(q_, k_, v_).contiguous()
 
     fn = local_map(attend_local, out_placements=(pl,),
                    in_placements=(pl, pl, pl), in_grad_placements=(pl, pl, pl),
@@ -271,8 +273,18 @@ def sequence_positions(x: torch.Tensor) -> torch.Tensor:
 def attend(p: Attention, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool = True) -> torch.Tensor:
     """Attention of projected q (B, S, nq, hd) over k, v (B, S, nkv, hd)
-    through the kernel, then WO: (B, S, D)."""
-    return flash_attention(q, k, v, causal=causal) @ gather_fsdp(p.wo)
+    through the kernel, then WO: (B, S, D).  Under a policy, on DTensors,
+    the kernel runs head-parallel on each rank's shard, as ``_sdpa`` does:
+    the op's own sharding rule splits only the batch where the kv heads do
+    not divide the mesh, and every "model" rank then attends with every
+    head."""
+    pol = get_policy()
+    if pol is not None and is_dtensor(q):
+        out = _head_parallel(lambda q_, k_, v_: flash_attention(q_, k_, v_, causal=causal),
+                             q, k, v, pol)
+    else:
+        out = flash_attention(q, k, v, causal=causal)
+    return out @ gather_fsdp(p.wo)
 
 
 def self_attention(p: Attention, cfg, x: torch.Tensor,

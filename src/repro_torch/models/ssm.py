@@ -29,6 +29,7 @@ from torch import nn
 
 from repro_torch.distributed.context import (
     contiguous_grad,
+    gather_fsdp,
     is_dtensor,
     mesh_placements,
     reduce_partial,
@@ -129,9 +130,9 @@ def _mamba_ssm_inputs(p: Mamba, cfg, xc: torch.Tensor):
     ds = cfg.ssm_d_state
     # x_proj is row-parallel: its partial sums are reduced before the split,
     # or DTensor would have to make dt_bias partial to add it
-    proj = reduce_partial(xc @ p.x_proj)
+    proj = reduce_partial(xc @ gather_fsdp(p.x_proj))
     dt_low, bmat, cmat = torch.split(proj, [dt_rank, ds, ds], dim=-1)
-    dt = dt_low @ p.dt_proj + p.dt_bias
+    dt = dt_low @ gather_fsdp(p.dt_proj) + p.dt_bias
     return F.softplus(dt.float()), bmat.float(), cmat.float()
 
 
@@ -165,12 +166,12 @@ def _pair_scan(decay: torch.Tensor, inp: torch.Tensor, dim: int):
     return decay, inp
 
 
-def _mamba_pairs(dt, bmat, xcf, a, c: int):
-    """Each token's decay exp(dt a) and input dt x B, (B, N, c, d_in, ds)."""
-    dt, bmat, xcf = (_chunked(t, c) for t in (dt, bmat, xcf))
+def _mamba_pairs(dt, bmat, xcf, a):
+    """Each token's decay exp(dt a) and input dt x B, (B, N, c, d_in, ds),
+    of chunked dt, xcf (B, N, c, d_in) and bmat (B, N, c, ds)."""
     da = torch.exp(dt[..., None] * a)
     db = (dt * xcf)[..., None] * bmat[..., None, :]
-    return dt, bmat, xcf, da, db
+    return da, db
 
 
 def _mamba_states(da, db, h0):
@@ -186,17 +187,25 @@ def _mamba_states(da, db, h0):
     return loc + prod * h_in[:, :, None], h_in, h
 
 
+# Chunks a group of ``_MambaScan``'s backward, which runs the chunks in
+# groups, the last first: its (B, chunks, c, d_in, ds) f32 temporaries
+# live for one group at a time.
+SCAN_BACKWARD_GROUP = 16
+
+
 class _MambaScan(torch.autograd.Function):
     """The selective scan in chunks, with its backward: the adjoint of h,
     ``g_t = dy_t C_t + da_{t+1} g_{t+1}``, is the same scan run backwards
-    (chunks in reverse, each in log depth).  Saves only the inputs and the
-    chunks' input states; the backward recomputes each token's h."""
+    (chunks in reverse, each in log depth; ``SCAN_BACKWARD_GROUP`` chunks
+    at a time, the adjoint carried from group to group).  Saves only the
+    inputs and the chunks' input states; the backward recomputes each
+    token's h."""
 
     @staticmethod
     def forward(ctx, dt, bmat, cmat, xcf, a):
         b, s, d_in = xcf.shape
         c = min(SCAN_CHUNK, s)
-        _, _, _, da, db = _mamba_pairs(dt, bmat, xcf, a, c)
+        da, db = _mamba_pairs(*(_chunked(t, c) for t in (dt, bmat, xcf)), a)
         h0 = xcf.new_zeros(b, d_in, a.shape[1])
         h, h_in, h_last = _mamba_states(da, db, h0)
         y = torch.einsum("bncis,bncs->bnci", h, _chunked(cmat, c))
@@ -208,32 +217,45 @@ class _MambaScan(torch.autograd.Function):
         dt, bmat, cmat, xcf, a, h_in = ctx.saved_tensors
         b, s, d_in = xcf.shape
         c = min(SCAN_CHUNK, s)
-        dtc, bc, xc, da, db = _mamba_pairs(dt, bmat, xcf, a, c)
-        cc, dyc = _chunked(cmat, c), _chunked(dy, c)
-        prod, loc = _pair_scan(da, db, 2)
-        h = loc + prod * h_in[:, :, None]
-        # g_t = dy_t C_t + da_{t+1} g_{t+1}: flipped, a forward scan whose
-        # decay at the chunk's last token is one (the carry enters there)
-        shifted = torch.cat([da[:, :, 1:], torch.ones_like(da[:, :, :1])], dim=2)
-        rprod, rloc = _pair_scan(shifted.flip(2), (dyc[..., None] * cc[..., None, :]).flip(2), 2)
-        rprod, rloc = rprod.flip(2), rloc.flip(2)
-        carry = [dh_last]
-        for i in range(da.shape[1] - 1, 0, -1):  # into chunk i-1's last token
-            carry.append(da[:, i, 0] * (rloc[:, i, 0] + rprod[:, i, 0] * carry[-1]))
-        g = rloc + rprod * torch.stack(carry[::-1], dim=1)[:, :, None]
-        h_prev = torch.cat([h_in[:, :, None], h[:, :, :-1]], dim=2)
-        gda = g * h_prev * da  # through da = exp(dt a)
-        gb = torch.einsum("bncis,bncs->bnci", g, bc)
-        d_dt = torch.einsum("bncis,is->bnci", gda, a) + gb * xc
-        d_x = gb * dtc
-        d_b = torch.einsum("bncis,bnci->bncs", g, dtc * xc)
-        d_c = torch.einsum("bncis,bnci->bncs", h, dyc)
-        d_a = torch.einsum("bncis,bnci->is", gda, dtc)
+        chunked = [_chunked(t, c) for t in (dt, bmat, xcf, cmat, dy)] + [h_in]
+        n = h_in.shape[1]
+        carry, parts, d_a = dh_last, [], None
+        for hi in range(n, 0, -SCAN_BACKWARD_GROUP):
+            lo = max(0, hi - SCAN_BACKWARD_GROUP)
+            group = chunked if hi - lo == n else [t[:, lo:hi] for t in chunked]
+            dtc, bc, xc, cc, dyc, hin = group
+            da, db = _mamba_pairs(dtc, bc, xc, a)
+            prod, loc = _pair_scan(da, db, 2)
+            h = loc + prod * hin[:, :, None]
+            # g_t = dy_t C_t + da_{t+1} g_{t+1}: flipped, a forward scan
+            # whose decay at the chunk's last token is one (the carry
+            # enters there)
+            shifted = torch.cat([da[:, :, 1:], torch.ones_like(da[:, :, :1])], dim=2)
+            rprod, rloc = _pair_scan(shifted.flip(2),
+                                     (dyc[..., None] * cc[..., None, :]).flip(2), 2)
+            rprod, rloc = rprod.flip(2), rloc.flip(2)
+            carries = [carry]
+            for i in range(hi - lo - 1, 0, -1):  # into chunk i-1's last token
+                carries.append(da[:, i, 0] * (rloc[:, i, 0] + rprod[:, i, 0] * carries[-1]))
+            if lo:  # into the group before
+                carry = da[:, 0, 0] * (rloc[:, 0, 0] + rprod[:, 0, 0] * carries[-1])
+            g = rloc + rprod * torch.stack(carries[::-1], dim=1)[:, :, None]
+            h_prev = torch.cat([hin[:, :, None], h[:, :, :-1]], dim=2)
+            gda = g * h_prev * da  # through da = exp(dt a)
+            gb = torch.einsum("bncis,bncs->bnci", g, bc)
+            parts.append((torch.einsum("bncis,is->bnci", gda, a) + gb * xc,
+                          torch.einsum("bncis,bnci->bncs", g, dtc * xc),
+                          torch.einsum("bncis,bnci->bncs", h, dyc),
+                          gb * dtc))
+            d_a_group = torch.einsum("bncis,bnci->is", gda, dtc)
+            d_a = d_a_group if d_a is None else d_a + d_a_group
 
-        def back(t):
+        def back(group_parts):
+            t = group_parts[0] if len(group_parts) == 1 else torch.cat(group_parts[::-1], dim=1)
             return t.reshape((b, -1) + t.shape[3:])[:, :s]
 
-        return back(d_dt), back(d_b), back(d_c), back(d_x), d_a
+        d_dt, d_b, d_c, d_x = (back(list(p)) for p in zip(*parts))
+        return d_dt, d_b, d_c, d_x, d_a
 
 
 def _mamba_scan(dt, bmat, cmat, xcf, a):
@@ -284,9 +306,35 @@ def _sharded_scan(scan, args: tuple, dims: tuple, out_dims: tuple):
                      device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
+class _SiluGate(torch.autograd.Function):
+    """``_silu_gate`` for training: the same forward ops, saving y and z in
+    their own dtype where autograd would keep silu's f32 copy of z; the
+    backward recomputes silu(z) (the same ops, so the same numbers)."""
+
+    @staticmethod
+    def forward(ctx, y, z):
+        ctx.save_for_backward(y, z)
+        return y * F.silu(z.float()).to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        y, z = ctx.saved_tensors
+        zf = z.float()
+        d_y = d_out * F.silu(zf).to(y.dtype)
+        d_z = torch.ops.aten.silu_backward((d_out * y).float(), zf)
+        return d_y, d_z.to(z.dtype)
+
+
+def _silu_gate(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """y gated by silu(z), silu in f32 and cast to y's dtype."""
+    if torch.is_grad_enabled() and (y.requires_grad or z.requires_grad):
+        return _SiluGate.apply(y, z)
+    return y * F.silu(z.float()).to(y.dtype)
+
+
 def mamba(p: Mamba, cfg, x: torch.Tensor, return_state: bool = False):
     """Full-sequence mamba mixer. x: (B, S, D) -> (B, S, D) [, final state]."""
-    xin, z = (x @ p.in_proj).chunk(2, dim=-1)
+    xin, z = (x @ gather_fsdp(p.in_proj)).chunk(2, dim=-1)
     xc = F.silu(_mamba_conv_full(p, xin).float()).to(x.dtype)
     dt, bmat, cmat = _mamba_ssm_inputs(p, cfg, xc)
     a = -torch.exp(p.A_log)  # (d_in, ds)
@@ -295,8 +343,7 @@ def mamba(p: Mamba, cfg, x: torch.Tensor, return_state: bool = False):
     ys, h = _sharded_scan(_mamba_scan, (dt, bmat, cmat, xcf, a),
                           ((0, 2), (0, None), (0, None), (0, 2), (None, 0)), ((0, 2), (0, 1)))
     y = ys + xcf * p.D  # (B, S, d_in)
-    y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
-    out = y @ p.out_proj
+    out = _silu_gate(y.to(x.dtype), z) @ gather_fsdp(p.out_proj)
     if not return_state:
         return out
     # conv state: the last (K-1) pre-conv inputs
@@ -316,7 +363,7 @@ def mamba_state_init(cfg, batch: int, device=None) -> dict:
 
 def mamba_decode(p: Mamba, cfg, x: torch.Tensor, state: dict):
     """Single-token decode. x: (B, 1, D) -> (out (B, 1, D), new state)."""
-    xin, z = (x @ p.in_proj).chunk(2, dim=-1)  # (B, 1, d_in)
+    xin, z = (x @ gather_fsdp(p.in_proj)).chunk(2, dim=-1)  # (B, 1, d_in)
     window = torch.cat([state["conv"], xin.float()], dim=1)  # (B, K, d_in)
     xc = torch.einsum("bkc,kc->bc", window, p.conv_w.float()) + p.conv_b.float()
     xc = F.silu(xc)[:, None, :].to(x.dtype)  # (B, 1, d_in)
@@ -328,8 +375,8 @@ def mamba_decode(p: Mamba, cfg, x: torch.Tensor, state: dict):
     db = dt_t[:, :, None] * b_t[:, None, :]
     h = da * state["h"] + db * xc_f[:, :, None]
     y = torch.einsum("bcs,bs->bc", h, c_t) + xc_f * p.D
-    y = y[:, None, :].to(x.dtype) * F.silu(z.float()).to(x.dtype)
-    return y @ p.out_proj, {"h": h, "conv": window[:, 1:, :]}
+    y = _silu_gate(y[:, None, :].to(x.dtype), z)
+    return y @ gather_fsdp(p.out_proj), {"h": h, "conv": window[:, 1:, :]}
 
 
 # ---------------------------------------------------------------------------
@@ -389,12 +436,12 @@ def _mix(x: torch.Tensor, x_shift: torch.Tensor, mu: torch.Tensor) -> torch.Tens
 
 
 def _rwkv_projections(p: RWKVTimeMix, x: torch.Tensor, x_shift: torch.Tensor):
-    r = _mix(x, x_shift, p.mu_r) @ p.wr
-    k = _mix(x, x_shift, p.mu_k) @ p.wk
-    v = _mix(x, x_shift, p.mu_v) @ p.wv
-    g = _mix(x, x_shift, p.mu_g) @ p.wg
+    r = _mix(x, x_shift, p.mu_r) @ gather_fsdp(p.wr)
+    k = _mix(x, x_shift, p.mu_k) @ gather_fsdp(p.wk)
+    v = _mix(x, x_shift, p.mu_v) @ gather_fsdp(p.wv)
+    g = _mix(x, x_shift, p.mu_g) @ gather_fsdp(p.wg)
     xw = _mix(x, x_shift, p.mu_w).float()
-    dec = p.w0 + torch.tanh(xw @ p.wa.float()) @ p.wb.float()
+    dec = p.w0 + torch.tanh(xw @ gather_fsdp(p.wa).float()) @ gather_fsdp(p.wb).float()
     w = torch.exp(-torch.exp(dec))  # (B, S, D) in (0, 1): per-channel decay
     return r, k, v, g, w
 
@@ -406,9 +453,8 @@ def _heads(t: torch.Tensor, nh: int, hd: int) -> torch.Tensor:
 
 def _rwkv_out(p: RWKVTimeMix, x: torch.Tensor, y: torch.Tensor, g: torch.Tensor):
     """Norm the f32 mix y (B, S, D), gate it by silu(g) and project."""
-    y = rmsnorm(y, p.ln_x.scale)
-    y = y.to(x.dtype) * F.silu(g.float()).to(x.dtype)
-    return y @ p.wo
+    y = _silu_gate(rmsnorm(y, p.ln_x.scale).to(x.dtype), g)
+    return y @ gather_fsdp(p.wo)
 
 
 def _rwkv_step(r, k, v, w, u, state):
@@ -513,10 +559,10 @@ def rwkv_channel_mix(p: RWKVChannelMix, cfg, x: torch.Tensor, x_prev=None) -> to
     if x_prev is None:
         x_prev = x.new_zeros(b, d)
     x_shift = _rwkv_shift(x, x_prev)
-    k = _mix(x, x_shift, p.mu_k) @ p.wk
+    k = _mix(x, x_shift, p.mu_k) @ gather_fsdp(p.wk)
     k = torch.square(torch.relu(k.float())).to(x.dtype)
-    kv = k @ p.wv
-    r = torch.sigmoid((_mix(x, x_shift, p.mu_r) @ p.wr).float()).to(x.dtype)
+    kv = k @ gather_fsdp(p.wv)
+    r = torch.sigmoid((_mix(x, x_shift, p.mu_r) @ gather_fsdp(p.wr)).float()).to(x.dtype)
     return r * kv
 
 

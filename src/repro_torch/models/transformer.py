@@ -135,6 +135,7 @@ def _cross(p: Block, cfg, x: torch.Tensor, ctx: dict) -> torch.Tensor:
     unchanged for every other mixer."""
     if p.spec.mixer != "self_cross":
         return x
+    x = constrain(x, "btd")  # pinned after the self-attention, as before the ffn
     return x + cross_attention(p.cross, cfg, p.norm_cross(x), ctx["kv_src"])
 
 
@@ -256,6 +257,7 @@ def stack_prefill(blocks, cfg, x: torch.Tensor, caches: list, ctx: dict):
             out, state = ssm.rwkv_time_mix(p.mixer, cfg, h, return_state=True)
             x = x + out
             c.update(s=state["s"], x_prev_att=state["x_prev"])
+        x = constrain(x, "btd")  # between the mixer and the ffn, as ``apply_block`` pins it
         h2 = p.norm2(x)
         out, _ = _ffn(p, cfg, h2)
         if p.spec.ffn == "rwkv_ffn":

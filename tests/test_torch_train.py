@@ -565,15 +565,26 @@ def test_launcher_trains_a_moe_config_on_the_cpu(tmp_path, capsys):
 
 
 def test_launcher_trains_rwkv6_on_the_cpu(tmp_path, capsys):
-    """The SSM family through the launcher: the per-token rwkv scan under
-    autograd and remat learns (a falling loss)."""
-    rc = launch_train.main(["--arch", "rwkv6_1_6b", "--reduced", "--device", "cpu",
-                            "--steps", "30", "--batch", "4", "--seq", "64", "--lr", "2e-2",
-                            "--ckpt-dir", str(tmp_path / "ckpt")])
+    """The SSM family through the launcher: the chunked rwkv scan under
+    autograd and remat learns (a falling loss).  At lr 2e-2 the f32 run
+    follows rounding noise that Adam amplifies (in f64 the chunked and the
+    per-token scan give the same losses within 3e-9 over 30 steps; in f32
+    they part by 4e-3 from step 5), and the thread count changes the
+    rounding (and, past one thread, from run to run).  So the test pins one
+    thread, and runs 40 steps, where the last loss is at least 0.15 under
+    the bar at every count from 1 to 8 (``benchmarks/rwkv_drift_torch.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rc = launch_train.main(["--arch", "rwkv6_1_6b", "--reduced", "--device", "cpu",
+                                "--steps", "40", "--batch", "4", "--seq", "64", "--lr", "2e-2",
+                                "--ckpt-dir", str(tmp_path / "ckpt")])
+    finally:
+        torch.set_num_threads(threads)
     out = capsys.readouterr().out
     assert rc == 0, out
     assert "arch=rwkv6_1_6b" in out and "moe aux" not in out
-    done = [line for line in out.splitlines() if line.startswith("done: 30 steps")]
+    done = [line for line in out.splitlines() if line.startswith("done: 40 steps")]
     assert done, out
     first, last = (float(x) for x in done[0].rsplit("loss ", 1)[1].split(" -> "))
     assert last < first - 0.5, done[0]
