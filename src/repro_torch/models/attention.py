@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.distributed.context import (
     contiguous_grad,
     gather_fsdp,
@@ -292,9 +293,10 @@ def self_attention(p: Attention, cfg, x: torch.Tensor,
                    causal: bool = True) -> torch.Tensor:
     """Full self-attention through the kernel (prefill and
     ``Model.forward``; not differentiable on the card). x: (B, S, D)."""
-    if positions is None:
-        positions = sequence_positions(x)
-    return attend(p, *_project_qkv(p, cfg, x, positions), causal=causal)
+    with obs.span("attention"):
+        if positions is None:
+            positions = sequence_positions(x)
+        return attend(p, *_project_qkv(p, cfg, x, positions), causal=causal)
 
 
 def train_self_attention(p: Attention, cfg, x: torch.Tensor,
@@ -303,16 +305,17 @@ def train_self_attention(p: Attention, cfg, x: torch.Tensor,
     """Full self-attention for training, differentiable (the reference's
     ``self_attention``): ``_blocked_sdpa`` above ``BLOCKED_ATTN_THRESHOLD``
     when S is a multiple of ``Q_CHUNK``, else ``_sdpa``. x: (B, S, D)."""
-    s = x.shape[1]
-    if positions is None:
-        positions = sequence_positions(x)
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    if s > BLOCKED_ATTN_THRESHOLD and s % Q_CHUNK == 0:
-        out = _blocked_sdpa(q, k, v, causal)
-    else:
-        out = _sdpa(q, k, v, causal_mask(s, s, device=x.device) if causal else None,
-                    constrain_heads=True)
-    return out @ gather_fsdp(p.wo)
+    with obs.span("attention"):
+        s = x.shape[1]
+        if positions is None:
+            positions = sequence_positions(x)
+        q, k, v = _project_qkv(p, cfg, x, positions)
+        if s > BLOCKED_ATTN_THRESHOLD and s % Q_CHUNK == 0:
+            out = _blocked_sdpa(q, k, v, causal)
+        else:
+            out = _sdpa(q, k, v, causal_mask(s, s, device=x.device) if causal else None,
+                        constrain_heads=True)
+        return out @ gather_fsdp(p.wo)
 
 
 def cross_attention(p: Attention, cfg, x: torch.Tensor, kv_src: torch.Tensor) -> torch.Tensor:
@@ -361,19 +364,20 @@ def decode_attention(p: Attention, cfg, x: torch.Tensor, cache: dict, pos: int):
     written (one for the whole batch).  Writes the new K/V at ``pos`` in
     place and attends over the cache slots ``<= pos``.  Returns
     (out (B, 1, D), cache)."""
-    b = x.shape[0]
-    pos = int(pos)
-    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
-    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
-    write_along(cache["k"], pos, k_new)
-    write_along(cache["v"], pos, v_new)
-    pol = get_policy()
-    if pol is not None and is_dtensor(q):
-        out = _decode_sdpa_sharded(q, cache["k"], cache["v"], pos, pol)
-    else:
-        out = _sdpa(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype),
-                    _decode_mask(0, cache["k"].shape[1], pos, x.device))
-    return out @ gather_fsdp(p.wo), cache
+    with obs.span("attention"):
+        b = x.shape[0]
+        pos = int(pos)
+        positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+        q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+        write_along(cache["k"], pos, k_new)
+        write_along(cache["v"], pos, v_new)
+        pol = get_policy()
+        if pol is not None and is_dtensor(q):
+            out = _decode_sdpa_sharded(q, cache["k"], cache["v"], pos, pol)
+        else:
+            out = _sdpa(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype),
+                        _decode_mask(0, cache["k"].shape[1], pos, x.device))
+        return out @ gather_fsdp(p.wo), cache
 
 
 def _decode_mask(off: int, n: int, pos: int, device) -> torch.Tensor:

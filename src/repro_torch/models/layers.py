@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.distributed.context import (
     contiguous_grad,
     gather_fsdp,
@@ -144,10 +145,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 def mlp(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
         wo: torch.Tensor) -> torch.Tensor:
     """SwiGLU: silu in f32, cast back to x's dtype."""
-    g = x @ gather_fsdp(wg)
-    h = x @ gather_fsdp(wi)
-    act = torch.nn.functional.silu(g.float()).to(x.dtype) * h
-    return act @ gather_fsdp(wo)
+    with obs.span("mlp"):
+        g = x @ gather_fsdp(wg)
+        h = x @ gather_fsdp(wi)
+        act = torch.nn.functional.silu(g.float()).to(x.dtype) * h
+        return act @ gather_fsdp(wo)
 
 
 class MLP(nn.Module):

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.distributed.context import constrain
 from repro_torch.kernels._platform import resolve_device
 from repro_torch.models import transformer as tf
@@ -187,15 +188,16 @@ class Model(nn.Module):
         moe_z_loss`` with experts.  Returns (loss, {"ce", "moe_lb_loss",
         "moe_z_loss"}); the aux losses are zeros without experts, as in the
         reference."""
-        logits, aux = self._train_stack(batch)
-        mask = batch.get("mask")
-        ce = softmax_xent(logits, self._tokens(batch["labels"]),
-                          None if mask is None else self._tokens(mask))
-        loss = ce
-        if self.cfg.n_experts:
-            loss = (loss + LB_LOSS_WEIGHT * aux["moe_lb_loss"]
-                    + Z_LOSS_WEIGHT * aux["moe_z_loss"])
-        return loss, {"ce": ce, **aux}
+        with obs.span("model.forward", device=self.device):
+            logits, aux = self._train_stack(batch)
+            mask = batch.get("mask")
+            ce = softmax_xent(logits, self._tokens(batch["labels"]),
+                              None if mask is None else self._tokens(mask))
+            loss = ce
+            if self.cfg.n_experts:
+                loss = (loss + LB_LOSS_WEIGHT * aux["moe_lb_loss"]
+                        + Z_LOSS_WEIGHT * aux["moe_z_loss"])
+            return loss, {"ce": ce, **aux}
 
     # ---- serving ----
 
@@ -217,19 +219,21 @@ class Model(nn.Module):
     def prefill(self, batch: dict, cache: dict):
         """Run the full prompt, fill the cache (prompt K/V, final SSM states
         and ``kv_src``); returns (last_logits (B, 1, vocab_padded), cache)."""
-        ctx = self._context(batch)
-        x, blocks = tf.stack_prefill(self.blocks, self.cfg, self._embed(batch["tokens"]),
-                                     cache["blocks"], ctx)
-        return self._logits(x[:, -1:, :]), dict(cache, blocks=blocks, **ctx)
+        with obs.span("model.prefill", device=self.device):
+            ctx = self._context(batch)
+            x, blocks = tf.stack_prefill(self.blocks, self.cfg, self._embed(batch["tokens"]),
+                                         cache["blocks"], ctx)
+            return self._logits(x[:, -1:, :]), dict(cache, blocks=blocks, **ctx)
 
     @torch.no_grad()
     def decode_step(self, tokens, cache: dict, pos: int):
         """One token for the whole batch, cross-attending over the cache's
         ``kv_src``.  tokens: (B, 1); pos: int."""
-        ctx = {"kv_src": cache["kv_src"]} if "kv_src" in cache else {}
-        x, blocks = tf.stack_decode(self.blocks, self.cfg, self._embed(tokens),
-                                    cache["blocks"], int(pos), ctx)
-        return self._logits(x), dict(cache, blocks=blocks)
+        with obs.span("model.decode_step", device=self.device):
+            ctx = {"kv_src": cache["kv_src"]} if "kv_src" in cache else {}
+            x, blocks = tf.stack_decode(self.blocks, self.cfg, self._embed(tokens),
+                                        cache["blocks"], int(pos), ctx)
+            return self._logits(x), dict(cache, blocks=blocks)
 
 
 def _mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.distributed.context import (
     contiguous_grad,
     get_policy,
@@ -129,26 +130,35 @@ def _routed(router: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor, wo: torch.
     n_groups = t // group
     cap = _capacity(group, k, e, cap_factor)
     xf = x.reshape(t, d)
-    r = route(router, xf.reshape(n_groups, group, d), k, cap)
+    with obs.span("moe.route"):
+        r = route(router, xf.reshape(n_groups, group, d), k, cap)
 
-    # local expert e's slot (g, c) is row (e * G + g) * C + c of the expert batch
-    mine = r.keep if e_local == e else r.keep & (r.idx >= e_lo) & (r.idx < e_lo + e_local)
-    grp = torch.arange(n_groups, device=x.device)[:, None, None]
-    slot = ((r.idx - e_lo) * n_groups + grp) * cap + r.pos
-    token = torch.arange(t, device=x.device).reshape(n_groups, group, 1).expand_as(slot)
-    n_slots = e_local * n_groups * cap
-    # a dropped pair writes past the end; an empty slot reads the zero row t
-    table = torch.full((n_slots + 1,), t, dtype=torch.long, device=x.device)
-    table.scatter_(0, torch.where(mine, slot, n_slots).flatten(), token.flatten())
-    xe = torch.cat([xf, xf.new_zeros(1, d)])[table[:n_slots]].reshape(e_local, n_groups * cap, d)
-    g_act = torch.bmm(xe, wg)
-    h_act = torch.bmm(xe, wi)
-    act = F.silu(g_act.float()).to(x.dtype) * h_act
-    ye = torch.bmm(act, wo).reshape(n_slots, d)
-    # combine in the compute dtype, as the reference's combine tensor is
-    gate_kept = (r.gate * mine).to(x.dtype)
-    rows = ye[torch.where(mine, slot, 0)]  # (G, T, k, D)
-    out = torch.einsum("gtk,gtkd->gtd", gate_kept, rows).reshape(b, s, d)
+    with obs.span("moe.dispatch"):
+        # local expert e's slot (g, c) is row (e * G + g) * C + c of the expert batch
+        mine = r.keep if e_local == e else r.keep & (r.idx >= e_lo) & (r.idx < e_lo + e_local)
+        grp = torch.arange(n_groups, device=x.device)[:, None, None]
+        slot = ((r.idx - e_lo) * n_groups + grp) * cap + r.pos
+        token = torch.arange(t, device=x.device).reshape(n_groups, group, 1).expand_as(slot)
+        n_slots = e_local * n_groups * cap
+        # a dropped pair writes past the end; an empty slot reads the zero row t
+        table = torch.full((n_slots + 1,), t, dtype=torch.long, device=x.device)
+        table.scatter_(0, torch.where(mine, slot, n_slots).flatten(), token.flatten())
+        xe = torch.cat([xf, xf.new_zeros(1, d)])[table[:n_slots]].reshape(
+            e_local, n_groups * cap, d)
+    if obs.recording():  # every pair, the slots computed, the pairs kept in them
+        obs.count("moe.pairs", t * k)
+        obs.count("moe.slots", n_slots)
+        obs.count("moe.kept", mine.sum())
+    with obs.span("moe.experts"):
+        g_act = torch.bmm(xe, wg)
+        h_act = torch.bmm(xe, wi)
+        act = F.silu(g_act.float()).to(x.dtype) * h_act
+        ye = torch.bmm(act, wo).reshape(n_slots, d)
+    with obs.span("moe.combine"):
+        # combine in the compute dtype, as the reference's combine tensor is
+        gate_kept = (r.gate * mine).to(x.dtype)
+        rows = ye[torch.where(mine, slot, 0)]  # (G, T, k, D)
+        out = torch.einsum("gtk,gtkd->gtd", gate_kept, rows).reshape(b, s, d)
 
     # aux losses (Switch): load balance = E * mean(frac_tokens * frac_probs)
     frac_tokens = F.one_hot(r.idx, e).sum(2).float().mean(1)  # (G, E)

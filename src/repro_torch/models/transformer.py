@@ -30,6 +30,7 @@ import functools
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.distributed.context import constrain, write_along
 from repro_torch.models import ssm
 from repro_torch.models.attention import (
@@ -220,11 +221,19 @@ def stack_forward(blocks, cfg, x: torch.Tensor, ctx: dict, block=apply_block,
         if cfg.remat_policy == "dots":
             kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
                                                  _save_dots)
+
+        def recomputable(x, group, ctx):
+            # inside the backward this call is the recompute (checkpoint.py's own test)
+            if torch._C._current_graph_task_id() == -1:
+                return run(x, group, ctx)
+            with obs.span("model.recompute", device=x.device):
+                return run(x, group, ctx)
+
         period, _ = find_period([p.spec for p in blocks])
         lb = z = x.new_zeros((), dtype=torch.float32)
         for i in range(0, len(blocks), period):
-            x, lb_i, z_i = checkpoint(run, x, blocks[i:i + period], ctx, use_reentrant=False,
-                                      **kw)
+            x, lb_i, z_i = checkpoint(recomputable, x, blocks[i:i + period], ctx,
+                                      use_reentrant=False, **kw)
             lb, z = lb + lb_i, z + z_i
     n_moe = max(1, sum(1 for p in blocks if p.spec.ffn == "moe"))
     return x, {"moe_lb_loss": lb / n_moe, "moe_z_loss": z / n_moe}
@@ -242,10 +251,11 @@ def stack_prefill(blocks, cfg, x: torch.Tensor, caches: list, ctx: dict):
         x = constrain(x, "btd")
         h = p.norm1(x)
         if p.spec.mixer in ("attn", "self_cross"):
-            q, k, v = _project_qkv(p.attn, cfg, h, sequence_positions(h))
-            x = x + attend(p.attn, q, k, v, causal=True)
-            write_along(c["k"], 0, k)
-            write_along(c["v"], 0, v)
+            with obs.span("attention"):
+                q, k, v = _project_qkv(p.attn, cfg, h, sequence_positions(h))
+                x = x + attend(p.attn, q, k, v, causal=True)
+                write_along(c["k"], 0, k)
+                write_along(c["v"], 0, v)
             x = _cross(p, cfg, x, ctx)
         elif p.spec.mixer == "cross":
             x = x + cross_attention(p.attn, cfg, h, ctx["kv_src"])

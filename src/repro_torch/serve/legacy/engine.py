@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.models.model import Model
 
 
@@ -51,7 +52,8 @@ class ServeEngine:
         return toks, lens
 
     def _greedy(self, logits: torch.Tensor) -> np.ndarray:
-        return torch.argmax(logits[:, -1, : self.model.cfg.vocab], dim=-1).cpu().numpy()
+        with obs.span("engine.sample"):  # .cpu() waits for the device
+            return torch.argmax(logits[:, -1, : self.model.cfg.vocab], dim=-1).cpu().numpy()
 
     def run(self, requests: list[Request], extras: dict | None = None) -> list[Request]:
         """Serve a list of requests in fixed-size waves (greedy decoding).
@@ -63,33 +65,40 @@ class ServeEngine:
         while queue:
             wave = queue[: self.batch]
             queue = queue[self.batch :]
-            # pad the wave to the engine's static batch
-            while len(wave) < self.batch:
-                wave.append(Request(rid=-1, prompt=wave[0].prompt, max_new=0))
-            toks, lens = self._pad_prompts([r.prompt for r in wave])
-            width = toks.shape[1]
-            assert width + max(r.max_new for r in wave) <= self.max_seq
-            cache = self.model.init_cache(self.batch, self.max_seq)
-            batch = {"tokens": torch.from_numpy(toks).to(dev)}
-            if extras:
-                batch.update({k: torch.as_tensor(v).to(dev) for k, v in extras.items()})
-            logits, cache = self.prefill(batch, cache)
-            # NOTE: with right-padding, the "last" prompt token for shorter
-            # requests is a pad; the engine serves same-length waves exactly
-            # and mixed-length waves approximately (documented limitation of
-            # the static-batch engine; production uses per-slot positions).
-            outs = [[] for _ in wave]
-            cur = self._greedy(logits)
-            max_new = max(r.max_new for r in wave)
-            for step in range(max_new):
-                for i, r in enumerate(wave):
-                    if step < r.max_new:
-                        outs[i].append(int(cur[i]))
-                nxt = torch.from_numpy(cur.astype(np.int32)[:, None]).to(dev)
-                logits, cache = self.decode(nxt, cache, width + step)
+            # the spans of a wave share its first rid and its count
+            with obs.span("engine.wave", tag=(wave[0].rid, len(wave))):
+                # pad the wave to the engine's static batch
+                while len(wave) < self.batch:
+                    wave.append(Request(rid=-1, prompt=wave[0].prompt, max_new=0))
+                toks, lens = self._pad_prompts([r.prompt for r in wave])
+                width = toks.shape[1]
+                assert width + max(r.max_new for r in wave) <= self.max_seq
+                cache = self.model.init_cache(self.batch, self.max_seq)
+                batch = {"tokens": torch.from_numpy(toks).to(dev)}
+                if extras:
+                    batch.update({k: torch.as_tensor(v).to(dev) for k, v in extras.items()})
+                logits, cache = self.prefill(batch, cache)
+                # NOTE: with right-padding, the "last" prompt token for shorter
+                # requests is a pad; the engine serves same-length waves exactly
+                # and mixed-length waves approximately (documented limitation of
+                # the static-batch engine; production uses per-slot positions).
+                outs = [[] for _ in wave]
                 cur = self._greedy(logits)
-            for r, o in zip(wave, outs):
-                if r.rid >= 0:
-                    r.out = np.asarray(o[: r.max_new], dtype=np.int32)
-                    done.append(r)
+                max_new = max(r.max_new for r in wave)
+                for step in range(max_new):
+                    for i, r in enumerate(wave):
+                        if step < r.max_new:
+                            outs[i].append(int(cur[i]))
+                    with obs.span("engine.decode"):
+                        nxt = torch.from_numpy(cur.astype(np.int32)[:, None]).to(dev)
+                        logits, cache = self.decode(nxt, cache, width + step)
+                        cur = self._greedy(logits)
+                    if obs.recording():  # the step's token is served if a request takes one more
+                        obs.count("engine.decode_steps", 1)
+                        obs.count("engine.decode_steps_used",
+                                  any(step + 1 < r.max_new for r in wave))
+                for r, o in zip(wave, outs):
+                    if r.rid >= 0:
+                        r.out = np.asarray(o[: r.max_new], dtype=np.int32)
+                        done.append(r)
         return done

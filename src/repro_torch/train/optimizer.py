@@ -33,6 +33,7 @@ import math
 
 import torch
 
+from repro_torch import obs
 from repro_torch.distributed.context import is_dtensor
 from repro_torch.distributed.sharding import P
 from repro_torch.models.layers import dtype_of
@@ -133,36 +134,37 @@ def _decay_mask(name: str) -> bool:
 def update(cfg: OptimizerConfig, grads: dict, state: dict, params: dict):
     """One AdamW step on ``params`` (name -> tensor) with ``grads`` (name ->
     tensor), in place.  Returns (state, {"grad_norm", "lr"})."""
-    step = state["step"] + 1
-    lr = schedule(cfg, step)
+    with obs.span("optimizer.update", device=state["step"].device):
+        step = state["step"] + 1
+        lr = schedule(cfg, step)
 
-    grads = {n: _placed_as(grads[n], p) for n, p in params.items()}
-    gnorm = global_norm(grads[n] for n in params)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+        grads = {n: _placed_as(grads[n], p) for n, p in params.items()}
+        gnorm = global_norm(grads[n] for n in params)
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
 
-    b1, b2 = cfg.beta1, cfg.beta2
-    stepf = step.to(torch.float32)
-    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=stepf.device), stepf)
-    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=stepf.device), stepf)
+        b1, b2 = cfg.beta1, cfg.beta2
+        stepf = step.to(torch.float32)
+        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=stepf.device), stepf)
+        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=stepf.device), stepf)
 
-    for name, p in params.items():
-        decay = cfg.weight_decay and _decay_mask(name)
-        flat = (_local(p).view(-1), _local(state["m"][name]).view(-1),
-                _local(state["v"][name]).view(-1), _local(grads[name]).reshape(-1))
-        for w, m, v, g in zip(*(t.split(UPDATE_CHUNK) for t in flat)):
-            g = g.float() * scale
-            m32 = b1 * m.float() + (1 - b1) * g
-            v32 = b2 * v.float() + (1 - b2) * g * g
-            mhat = m32 / bc1
-            vhat = v32 / bc2
-            delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-            if decay:
-                delta = delta + cfg.weight_decay * w.float()
-            w.copy_(w.float() - lr * delta)
-            m.copy_(m32)
-            v.copy_(v32)
-    state["step"] = step
-    return state, {"grad_norm": gnorm, "lr": lr}
+        for name, p in params.items():
+            decay = cfg.weight_decay and _decay_mask(name)
+            flat = (_local(p).view(-1), _local(state["m"][name]).view(-1),
+                    _local(state["v"][name]).view(-1), _local(grads[name]).reshape(-1))
+            for w, m, v, g in zip(*(t.split(UPDATE_CHUNK) for t in flat)):
+                g = g.float() * scale
+                m32 = b1 * m.float() + (1 - b1) * g
+                v32 = b2 * v.float() + (1 - b2) * g * g
+                mhat = m32 / bc1
+                vhat = v32 / bc2
+                delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+                if decay:
+                    delta = delta + cfg.weight_decay * w.float()
+                w.copy_(w.float() - lr * delta)
+                m.copy_(m32)
+                v.copy_(v32)
+        state["step"] = step
+        return state, {"grad_norm": gnorm, "lr": lr}
 
 
 def _placed_as(g, p):

@@ -24,6 +24,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import obs
 from repro_torch.models.model import Model
 from repro_torch.train import optimizer as opt
 
@@ -44,7 +45,8 @@ def make_train_step(model: Model, tcfg: TrainConfig | None = None):
 
     def value_and_grad(batch):
         loss, metrics = model.loss(batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        with obs.span("model.backward", device=model.device):
+            grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), metrics, dict(zip(params, grads))
 
     def single(opt_state, batch):
@@ -68,7 +70,13 @@ def make_train_step(model: Model, tcfg: TrainConfig | None = None):
         opt_state, opt_metrics = opt.update(tcfg.optimizer, acc, opt_state, params)
         return opt_state, {"loss": loss_acc, **opt_metrics}
 
-    return single if tcfg.micro_steps == 1 else accumulated
+    body = single if tcfg.micro_steps == 1 else accumulated
+
+    def train_step(opt_state, batch):
+        with obs.span("train_step", device=model.device):
+            return body(opt_state, batch)
+
+    return train_step
 
 
 def jit_train_step(model: Model, mesh, tcfg: TrainConfig | None = None):
