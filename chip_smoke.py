@@ -233,11 +233,14 @@ Phases, one JSON line each on stdout:
               deleted).  Checks: ``attention_fwd`` on CUDA tensors that
               require grad raises; every parameter's gradient is finite after
               the first backward; every loss is finite and the mean of the
-              last 5 is below the first 5's; the attention kernel launches
-              0 times in the train steps; the checkpoint restores into the
+              last 5 is below the first 5's; each layer attends through the
+              training kernels (``train_attention_launches``: a forward a
+              layer, one more in remat's recompute, and a backward, in the
+              first forward and backward and in every train step); the
+              checkpoint restores into the
               live model; the trained weights then serve through
               ``Model.forward`` with exactly ``n_layers`` kernel launches and
-              logits within 2e-2 of the loss path's ``_sdpa`` logits.
+              logits within 2e-2 of the loss path's logits.
               Printed: the median step's seconds and tokens/s, a host-clock
               split into forward + backward and optimizer, peak memory, the
               step's FLOPs from shapes and their share of 989 TFLOP/s, the
@@ -278,8 +281,10 @@ Phases, one JSON line each on stdout:
               mean of the last 3 below the first 3's; every gradient finite
               after the first backward, and for whisper and llama-vision no
               cross-attention or encoder leaf with an all-zero gradient; the
-              MoE aux losses finite; the attention kernel launched 0 times in
-              every training step (``families_train_launches``); each peak
+              MoE aux losses finite; the training attention kernels launched
+              ``train_attention_launches`` times in the first step and their
+              backward once a self-attention layer in every step
+              (``families_train_launches``, backward launches); each peak
               under 76 GB.  Printed per config: init s, the median step's
               seconds and tokens/s, a host-clock split into forward +
               backward and optimizer, peak GB beside the reckoning
@@ -297,7 +302,8 @@ Phases, one JSON line each on stdout:
               unsharded (``make_train_step``) from the same seeded weights
               and batches under deterministic algorithms: losses and
               weights bit-equal (one rank runs the unsharded step's ops;
-              the difference is printed), 0 attention launches; step
+              the difference is printed; the unsharded step attends through
+              ``_sdpa`` as the sharded one does), 0 attention launches; step
               seconds of both.  (b) the same model served, prefill of 4 x 1,024 tokens
               then 32 greedy decode steps, unsharded and through
               ``jit_serve_steps`` (B4 through the op
@@ -315,10 +321,11 @@ Phases, one JSON line each on stdout:
               server's workers, ``served_launches``, in the multi-host
               phase's hosts, ``multihost_launches``, in phase examples,
               ``examples_launches``, and for attention in
-              phase train's steps, ``train_launches`` (0), its serving
+              phase train's steps, ``train_launches`` and
+              ``train_bwd_launches``, its serving
               of the trained weights, ``train_serve_launches``, phase
               serve_families' runs, ``families_launches``, and phase
-              train_families' steps, ``families_train_launches`` (0), and
+              train_families' steps, ``families_train_launches`` (backward), and
               phase distributed's sharded serving, ``distributed_launches``), its time at
               the path's largest call (CUDA events), its bound, the plain
               version's time and, where one PyTorch call computes the same
@@ -338,7 +345,13 @@ Phases, one JSON line each on stdout:
               is_causal=False)``, with
               ``torch.profiler``'s device us of its kernels and the atomics
               it takes at both calls, and the wrapper's host enqueue us a
-              call at the small one.
+              call at the small one.  B4's backward at the benchmark's
+              qwen3 training call (``ATTN_TRAIN_CALL``, in
+              ``backward_call``) beside ``scaled_dot_product_attention``'s
+              backward: the training forward's output bit-equal to the
+              serving launch's, its output and log-sum-exp against the
+              plain version's, each gradient against the plain backward's
+              from the plain forward, and two runs bit-equal.
 
 Any mismatch raises and the exit code is nonzero; without a CUDA card, or
 outside the repository, it exits nonzero before printing any result.  The
@@ -379,6 +392,13 @@ PEAK_BF16_OPS_PER_S = 989e12
 SERVE_GOLDEN = ROOT / "tests" / "data" / "torch_golden_serve.json"
 # the reference's own attention tolerances (tests/test_kernels.py)
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the training forward's log-sum-exp against the plain version's, absolute:
+# the plain einsum rounds the scores to bf16 where the kernel keeps them in
+# f32, half a bf16 ulp of |q.k| / sqrt(hd), at most ~0.011 at ATTN_TRAIN_CALL
+ATTN_LSE_ATOL = 2e-2
+# B4's backward is timed at the benchmark's qwen3 training call:
+# (batch, S, query heads, kv heads, head_dim), causal
+ATTN_TRAIN_CALL = (4, 4096, 16, 8, 128)
 SERVE_ARCH = "qwen3_0_6b"
 SERVE_BATCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 8, 1024, 32
 SERVE_MAX_SEQ = 1056
@@ -3033,6 +3053,23 @@ def train_flops(cfg, batch: int, seq: int) -> dict:
                 encoder_flops=encoder, flops=dense + attn + encoder)
 
 
+def train_attention_launches(model) -> tuple[int, int]:
+    """The training attention kernels' launches in one train step of
+    ``model``, (forwards, backwards): each self-attention layer (causal,
+    the encoder's non-causal, ``self_cross``'s self part) launches the
+    forward once, once more in remat's recompute, and the backward once;
+    none where the config's dtype or head_dim keeps training on
+    ``_sdpa``."""
+    from repro_torch.kernels.attention.attention import TRAIN_HEAD_DIMS
+
+    cfg = model.cfg
+    if cfg.dtype != "bfloat16" or cfg.head_dim not in TRAIN_HEAD_DIMS:
+        return 0, 0
+    specs = list(model.program) + list(model.enc_program)
+    n = sum(spec.mixer in ("attn", "attn_nc", "self_cross") for spec in specs)
+    return n * (2 if cfg.remat else 1), n
+
+
 def phase_train(dev, card: str) -> dict:
     """Full-width, full-depth qwen3_0_6b in bf16 through ``run_supervised``
     on seeded ``SyntheticLM`` batches; then the trained weights serve
@@ -3078,15 +3115,20 @@ def phase_train(dev, card: str) -> dict:
         attention_fwd(q, kv, kv)  # and launches under no_grad
     del q, kv
 
-    # every parameter has a finite gradient after the first backward
+    # every parameter has a finite gradient after the first backward, and
+    # each layer attended through the training kernels
     batch0 = {k: torch.as_tensor(v, device=dev) for k, v in source.batch(0).items()}
+    fwd_a_step, bwd_a_step = train_attention_launches(model)
+    check(bwd_a_step == cfg.n_layers, f"{bwd_a_step} layers on the training kernels")
     _platform.reset_launches()
     loss0, _ = model.loss(batch0)
     grads = torch.autograd.grad(loss0, list(params.values()))
     bad = [n for n, g in zip(params, grads) if not bool(torch.isfinite(g).all())]
     check(not bad, f"non-finite gradients after the first backward: {bad[:5]}")
-    check(_platform.launch_counts()["attention"] == 0,
-          "the attention kernel launched in a backward pass")
+    counts = _platform.launch_counts()
+    check((counts["attention"], counts["attention_bwd"]) == (fwd_a_step, bwd_a_step),
+          f"a forward and backward launched {counts['attention']} attention forwards and "
+          f"{counts['attention_bwd']} backwards, not {fwd_a_step} and {bwd_a_step}")
     del grads, loss0
 
     step_s: list = []
@@ -3118,8 +3160,10 @@ def phase_train(dev, card: str) -> dict:
     check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), f"losses {losses}")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     check(last < first, f"the loss did not fall: first 5 {first}, last 5 {last}")
-    check(train_launches["attention"] == 0,
-          f"the attention kernel launched {train_launches['attention']} times in training")
+    check((train_launches["attention"], train_launches["attention_bwd"])
+          == (fwd_a_step * TRAIN_STEPS, bwd_a_step * TRAIN_STEPS),
+          f"training launched {train_launches['attention']} attention forwards and "
+          f"{train_launches['attention_bwd']} backwards in {TRAIN_STEPS} steps")
     save = dict(ckpt.last_save)
     check(save.get("step") == TRAIN_STEPS, f"no checkpoint at step {TRAIN_STEPS}: {save}")
     saved = {n: params[n].detach().clone() for n in ("final_norm.scale", "blocks.0.attn.wq")}
@@ -3184,7 +3228,8 @@ def phase_train(dev, card: str) -> dict:
                 flop_share_of_bf16_peak=flops["flops"] / median_s / PEAK_BF16_OPS_PER_S,
                 checkpoint_bytes=save["bytes"], checkpoint_snapshot_s=save["snapshot_s"],
                 checkpoint_write_s=save["write_s"], checkpoint_restore_s=restore_s,
-                train_launches=train_launches["attention"], serve_launches=serve_launches,
+                train_launches=train_launches["attention"],
+                train_bwd_launches=train_launches["attention_bwd"], serve_launches=serve_launches,
                 serve_vs_loss_path_max_abs_err=serve_err, **idle)
     if idle.get("busy_ms") is not None:
         # the profiler slows the host and so widens its window: the busy
@@ -3316,6 +3361,8 @@ def phase_train_families(dev, card: str) -> dict:
         watched = [n for n in params if n.startswith(tuple(prefixes))]
         check(bool(watched) == bool(context), f"{arch}: context leaves {watched[:5]}")
 
+        fwd_a_step, bwd_a_step = train_attention_launches(model)
+
         def split_step(batch, first: bool = False) -> tuple:
             """One train step as ``make_train_step``'s, its forward +
             backward and its update timed apart on the host's clock; the
@@ -3328,6 +3375,12 @@ def phase_train_families(dev, card: str) -> dict:
             torch.cuda.synchronize()
             fwd_bwd = time.perf_counter() - t
             if first:
+                counts = _platform.launch_counts()
+                check((counts["attention"], counts["attention_bwd"])
+                      == (fwd_a_step, bwd_a_step),
+                      f"{arch}: the first step launched {counts['attention']} attention "
+                      f"forwards and {counts['attention_bwd']} backwards, not {fwd_a_step} "
+                      f"and {bwd_a_step}")
                 bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())]
                 check(not bad, f"{arch}: non-finite gradients after the first backward: "
                       f"{bad[:5]}")
@@ -3374,10 +3427,11 @@ def phase_train_families(dev, card: str) -> dict:
                               host=False)
         profile_s = time.perf_counter() - t
         dropped = moe_drop_share(model, batch)
-        # none in any step: the split, timed and profiled ones
-        launches = _platform.launch_counts()["attention"]
-        check(launches == 0, f"{arch}: the attention kernel launched {launches} times "
-              f"in training")
+        # one backward a layer in every step: the split, timed and profiled ones
+        launches = _platform.launch_counts()["attention_bwd"]
+        check(launches == bwd_a_step * (steps + profiled),
+              f"{arch}: the attention backward launched {launches} times in "
+              f"{steps + profiled} steps, not {bwd_a_step} a step")
 
         median_s = statistics.median(step_s[1:])  # the first step warms up
         flops = train_flops(cfg, batch_size, seq)
@@ -3760,9 +3814,17 @@ def phase_distributed(dev, card: str) -> dict:
                         attention_launches=_platform.launch_counts()["attention"],
                         params={n: whole(p).detach().cpu() for n, p in model.named_parameters()})
 
+        # the sharded step attends through _sdpa (DTensors); the unsharded
+        # one is held to it op for op, so it attends through _sdpa too (its
+        # training kernels are held in phase train)
+        from unittest import mock
+
+        from repro_torch.models import attention as attention_module
+
         torch.use_deterministic_algorithms(True)
         try:
-            runs = {"unsharded": train(False)}
+            with mock.patch.object(attention_module, "_takes_train_kernel", lambda q: False):
+                runs = {"unsharded": train(False)}
             torch.cuda.empty_cache()
             runs["sharded"] = train(True)
             torch.cuda.empty_cache()
@@ -3906,6 +3968,88 @@ def phase_attention_timing(q, k, v, causal: bool) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 max_abs_err=err, library_max_abs_err=lib_err,
                 shape=[b, s, nq, nkv, hd], dtype=str(q.dtype), flops=flops, bytes=nbytes)
+
+
+def phase_attention_bwd_timing(dev) -> dict:
+    """B4's backward (``attention_bwd_launch``: D, dQ, dK and dV) at the
+    benchmark's qwen3 training call (``ATTN_TRAIN_CALL``), bf16, causal:
+    back to back and as a replayed graph, alternated with
+    ``scaled_dot_product_attention``'s backward (``torch.autograd.grad``
+    through a retained graph), the yardstick only, back to back alone
+    (autograd replays it on the forward's stream, which a CUDA graph
+    cannot capture: ``graph_library_ms`` is None); the plain version's
+    time.  Checks: the training forward (``attention_fwd_lse``) bit-equal
+    to the serving launch, its output within ``ATTN_TOL["bfloat16"]`` of
+    the plain version's largest element and its log-sum-exp within
+    ``ATTN_LSE_ATOL`` of ``attention_lse_plain``'s; the backward kernels
+    against the plain backward fed the plain output and log-sum-exp, each
+    gradient within ``ATTN_TOL["bfloat16"]`` of its largest element (P and
+    dS go to the products in bf16, the plain version stays in f32); two
+    runs bit-equal.  The bound: the 5 products the gradients need (QKᵀ
+    recomputed, dO Vᵀ, dS K, dSᵀ Q, Pᵀ dO) at 989 TFLOP/s, or the bytes
+    (q, k, v, o, dO, the log-sum-exp read; dq, dk, dv written), whichever
+    is larger."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import attention as A
+
+    b, s, nq, nkv, hd = ATTN_TRAIN_CALL
+    g = torch.Generator(device=dev).manual_seed(2030)
+    q, k, v, d_out = (torch.randn(b, s, n, hd, device=dev, generator=g).to(torch.bfloat16)
+                      for n in (nq, nkv, nkv, nq))
+    tol = ATTN_TOL["bfloat16"]
+    out, lse = A._launch_lse(q, k, v, True)
+    check(torch.equal(out, A.attention_fwd(q, k, v, causal=True)),
+          "the training forward's output differs from the serving launch's")
+    plain_out, plain_lse = A.attention_lse_plain(q, k, v, causal=True)
+    lse_err = float((lse - plain_lse).abs().max())
+    check(lse_err <= ATTN_LSE_ATOL,
+          f"the training forward's log-sum-exp differs from the plain version's by {lse_err}")
+    out_err = float((out.float() - plain_out.float()).abs().max())
+    check(out_err <= tol * float(plain_out.float().abs().max()),
+          f"the training forward's output differs from the plain version's by {out_err}")
+    kernel = lambda: A._launch_bwd(d_out, q, k, v, out, lse, True)  # noqa: E731
+    qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_() for a in (q, k, v))
+    y = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    d_y = d_out.transpose(1, 2)
+    library = lambda: torch.autograd.grad(y, (qt, kt, vt), d_y, retain_graph=True)  # noqa: E731
+    rounds = {"ms": [], "graph_ms": [], "library_ms": []}
+    for _ in range(TIMING_ROUNDS):
+        rounds["graph_ms"].append(graph_ms(kernel, reps=10))
+        rounds["ms"].append(cuda_ms(kernel, reps=10))
+        rounds["library_ms"].append(cuda_ms(library, reps=10))
+    t = dict(rounds=TIMING_ROUNDS, graph_library_ms=None)
+    for key, values in rounds.items():
+        t.update({key: statistics.median(values), key + "_min": min(values),
+                  key + "_max": max(values), key + "_rounds": values})
+    plain = lambda: A.attention_bwd_plain(  # noqa: E731
+        d_out, q, k, v, plain_out, plain_lse, causal=True)
+    plain_ms = cuda_ms(plain, reps=3, warmup=1)
+    got, again, want = kernel(), kernel(), plain()
+    check(all(torch.equal(a, c) for a, c in zip(got, again)),
+          "two runs of the attention backward differ")
+    errs = {}
+    for name, gk, gw in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = float((gk.float() - gw.float()).abs().max())
+        check(errs[name] <= tol * float(gw.float().abs().max()),
+              f"attention backward's {name} differs from the plain version's by {errs[name]}")
+    pairs = b * nq * s * (s + 1) // 2
+    flops = 5 * 2 * hd * pairs  # 5 products, hd multiply-adds a pair each
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel()
+                  + d_out.numel()) + 4 * lse.numel()
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_BF16_OPS_PER_S * 1e3
+    return dict(plain_ms=plain_ms, **t,
+                library="torch.autograd.grad of torch.nn.functional."
+                        "scaled_dot_product_attention(is_causal, enable_gqa)",
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
+                fwd_out_max_abs_err=out_err, fwd_lse_max_abs_err=lse_err,
+                shape=[b, s, nq, nkv, hd], dtype="torch.bfloat16", flops=flops, bytes=nbytes)
 
 
 def phase_sass(lib: Path) -> dict:
@@ -4063,6 +4207,8 @@ def main() -> None:
               "attention": phase_attention_timing(*serve.pop("largest"))}
     # B4 on whisper's encoder (non-causal, S 1,500) beside its largest causal call
     timing["attention"]["encoder_call"] = phase_attention_timing(*encoder_call, causal=False)
+    # B4's backward at the benchmark's qwen3 training call
+    timing["attention"]["backward_call"] = phase_attention_bwd_timing(dev)
     worst["attention"] = max(worst["attention"],
                              timing["attention"]["encoder_call"]["max_abs_err"])
     launches = {"dram_timing": info["counts"]["dram_timing"],
@@ -4107,7 +4253,11 @@ def main() -> None:
             "distributed_launches": distributed["serve"]["attention_launches"],
             "encoder_call": {key: timing[name]["encoder_call"][key] for key in (
                 "shape", "ms", "graph_ms", "bound_ms", "bound_by", "library_ms",
-                "graph_library_ms", "plain_ms", "max_abs_err")}}
+                "graph_library_ms", "plain_ms", "max_abs_err")},
+            "backward_call": {key: timing[name]["backward_call"][key] for key in (
+                "shape", "ms", "graph_ms", "bound_ms", "bound_by", "library_ms",
+                "graph_library_ms", "plain_ms", "max_abs_err", "fwd_out_max_abs_err",
+                "fwd_lse_max_abs_err")}}
            if name == "attention" else {}),
         **{key: timing[name][key] for key in EXTRA_KEYS if key in timing[name]},
         card=smi) for name in KERNELS]))

@@ -1,4 +1,4 @@
-"""Attention forward: the CUDA kernel's wrapper and its plain PyTorch version.
+"""Attention: the CUDA kernels' wrappers and their plain PyTorch versions.
 
 ``attention_fwd(q, k, v, causal)`` takes q ``(B, S, nq, hd)`` and k, v
 ``(B, S, nkv, hd)`` with ``nq % nkv == 0`` (grouped-query attention: query
@@ -8,18 +8,37 @@ CUDA tensor it launches the hand-written kernel ``csrc/attention.cu`` (the
 port of ``repro/kernels/attention/attention.py::flash_attention_pallas``)
 or raises; on a CPU tensor it takes ``attention_plain``.  The kernel takes
 f32 (scalar FMAs) and bf16 (wgmma, fed by TMA), head_dim 32, 64 and 128,
-and any S.  It has no backward: on the card, a call that autograd would
-differentiate raises (training attends through ``models.attention._sdpa``,
-as the reference trains).
+and any S.  ``attention_fwd`` itself is not differentiable on the card: a
+call that autograd would differentiate raises.
 
-The kernel is also the operator ``repro_torch::flash_attention``
+``attention_train(q, k, v, causal)`` is the same function for training, a
+``torch.autograd.Function`` (``_FlashAttention``) whose forward and
+backward are kernels too, for bf16 and head_dim 64 or 128 on the card.
+Its forward is the bf16 kernel that also stores each query row's
+log-sum-exp (``attention_fwd_lse_bf16_kernel``); it saves q, k, v, the
+output and the log-sum-exp.  Its backward computes ``D = rowsum(dO ∘ O)``,
+then dQ in one kernel (a block a query tile, looping over key tiles) and
+dK, dV in another (a block a key tile, looping over the GQA group's query
+heads and the query tiles that see it), recomputing the probabilities
+from the log-sum-exp.  Every gradient element is written once: no
+atomics, the same bits on every run.  Backward launches count under
+``LAUNCHES["attention_bwd"]``.  The reference's kernel has no backward
+(it trains through its einsum attention); the JAX package's ``jax.grad``
+of ``repro/kernels/attention/ref.py::attention_ref`` is the function these
+gradients are held to.  On the CPU ``attention_train`` takes
+``attention_lse_plain`` and ``attention_bwd_plain``.
+
+The kernels are also operators, ``repro_torch::flash_attention``,
+``repro_torch::flash_attention_lse`` and ``repro_torch::flash_attention_bwd``
 (``torch.library.custom_op``), which DTensors, fake tensors and calls under
-a dispatch mode (the op counter) go through: a fake implementation gives
-its shape to ``FakeTensorMode`` (the dry run), its FLOPs, 4·B·nq·S²·hd
-halved when causal, are registered with ``torch.utils.flop_counter``, and
-a DTensor sharding rule (``_register_dtensor_rule``) runs it on each rank's
-shard of the batch or of whole GQA groups of heads.  A plain CUDA tensor
-launches the kernel directly, without the op's dispatch.
+a dispatch mode (the op counter, selective remat's caching mode) go
+through: a fake implementation gives their shapes to ``FakeTensorMode``
+(the dry run), and their FLOPs are registered with
+``torch.utils.flop_counter``: 4·B·nq·S²·hd forward (QKᵀ and PV), 10·B·nq·S²·hd
+backward (the scores recomputed, dP, dQ, dK and dV), halved when causal.
+A DTensor sharding rule (``_register_dtensor_rule``) runs the serving op
+on each rank's shard of the batch or of whole GQA groups of heads.  A
+plain CUDA tensor launches the kernels directly, without the ops' dispatch.
 """
 from __future__ import annotations
 
@@ -34,20 +53,24 @@ from repro_torch.kernels._platform import LAUNCHES
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
+TRAIN_HEAD_DIMS = (64, 128)  # the training kernels' head dims (bf16 only)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_FN = None
+# each entry point of the library: its pointer arguments, then its ints
+_ARGS = {"attention_fwd_launch": (4, 7), "attention_fwd_lse_launch": (5, 6),
+         "attention_bwd_launch": (10, 6)}
+_FNS: dict = {}
 
 
-def _kernel_fn():
-    global _FN
-    if _FN is None:
-        fn = _build.load("attention").attention_fwd_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+def _kernel_fn(name: str = "attention_fwd_launch"):
+    if name not in _FNS:
+        fn = getattr(_build.load("attention"), name)
+        ptrs, ints = _ARGS[name]
+        fn.argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS[name] = fn
+    return _FNS[name]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -84,7 +107,8 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention of ``(B, S, nq, hd)`` queries over ``(B, S, nkv, hd)`` keys
     and values; returns ``(B, S, nq, hd)`` in q's dtype.  CUDA tensors
     launch the kernel on the current stream (no sync), and raise where
-    autograd would need a backward; CPU tensors take the plain version,
+    autograd would need a backward (``attention_train`` has one); CPU
+    tensors take the plain version,
     which autograd differentiates.  DTensors (the sharded serving steps),
     fake tensors and calls under a dispatch mode go through the op
     ``repro_torch::flash_attention``, whose sharding rule
@@ -101,9 +125,9 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"unsupported device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
-            "the attention kernel has no backward: training takes "
-            "models.attention._sdpa (train_self_attention); call the kernel "
-            "under torch.no_grad() or on tensors that do not require grad")
+            "attention_fwd has no backward: training takes attention_train, "
+            "whose backward is a kernel too; call attention_fwd under "
+            "torch.no_grad() or on tensors that do not require grad")
     if type(q) is torch.Tensor and _get_current_dispatch_mode() is None:
         return _launch(q, k, v, causal)
     if dtensor:
@@ -163,18 +187,27 @@ def _register_dtensor_rule() -> None:
     _RULE_REGISTERED = True
 
 
+def _check_launch(tensors: dict, dtypes, head_dims) -> None:
+    """Raises unless the kernel takes these CUDA tensors: dtype, head_dim,
+    contiguity and the TMA maps' alignment."""
+    q = tensors["q"]
+    if q.dtype not in dtypes:
+        raise TypeError(f"the attention kernel takes {[str(d) for d in dtypes]}, "
+                        f"not {q.dtype}")
+    if q.shape[-1] not in head_dims:
+        raise ValueError(f"the attention kernel takes head_dim in {head_dims}, "
+                         f"not {q.shape[-1]}")
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        _check_alignment(name, t)
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
     """Launch the kernel on plain CUDA tensors; raises on what it does not
     take."""
     b, s, nq, hd = q.shape
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the attention kernel takes float32 or bfloat16, not {q.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the attention kernel takes head_dim in {HEAD_DIMS}, not {hd}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        _check_alignment(name, t)
+    _check_launch({"q": q, "k": k, "v": v}, tuple(_DTYPE_CODE), HEAD_DIMS)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -197,15 +230,189 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     an f32 softmax, and the probabilities cast to v's dtype before the PV
     product."""
     _check(q, k, v)
+    probs = torch.softmax(_plain_logits(q, k, causal), dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), _repeat_kv(v, q.shape[2]))
+    return out.to(q.dtype)
+
+
+def _repeat_kv(t: torch.Tensor, nq: int) -> torch.Tensor:
+    """kv heads ``(B, S, nkv, hd)`` repeated to the query heads."""
+    group = nq // t.shape[2]
+    return t.repeat_interleave(group, dim=2) if group > 1 else t
+
+
+def _plain_logits(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """``attention_plain``'s scaled scores ``(B, nq, S, S)`` in f32, -1e30
+    above the diagonal when causal."""
     s, nq, hd = q.shape[1:]
-    group = nq // k.shape[2]
-    if group > 1:
-        k = k.repeat_interleave(group, dim=2)
-        v = v.repeat_interleave(group, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (1.0 / hd ** 0.5)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, _repeat_kv(k, nq)).float() * (1.0 / hd ** 0.5)
     if causal:
         keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
         logits = logits.masked_fill(~keep, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
-    return out.to(q.dtype)
+    return logits
+
+
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """``attention_plain``'s output and each query row's log-sum-exp of
+    its scaled scores, ``(B, nq, S)`` in f32: what the training forward
+    kernel returns."""
+    out = attention_plain(q, k, v, causal=causal)
+    return out, torch.logsumexp(_plain_logits(q, k, causal), dim=-1)
+
+
+def attention_bwd_plain(d_out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, *,
+                        causal: bool = True) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' math in plain PyTorch, all in f32: P = exp(S·scale
+    − lse), D = rowsum(dO ∘ O), dS = P (dO Vᵀ − D), dQ = dS K·scale,
+    dK = dSᵀ Q·scale and dV = Pᵀ dO, each kv head's dK and dV summed over
+    its GQA group; returned in q's, k's and v's dtypes."""
+    _check(q, k, v)
+    b, s, nq, hd = q.shape
+    nkv = k.shape[2]
+    qf, dof = q.float(), d_out.float()
+    kf, vf = _repeat_kv(k.float(), nq), _repeat_kv(v.float(), nq)
+    scale = 1.0 / hd ** 0.5
+    p = torch.exp(_plain_logits(qf, kf, causal) - lse[..., None])
+    dsum = (dof * out.float()).sum(-1).transpose(1, 2)  # (B, nq, S)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - dsum[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk, dv = (t.reshape(b, s, nkv, nq // nkv, hd).sum(3) for t in (dk, dv))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward on plain CUDA tensors: the output and each
+    query row's log-sum-exp ``(B, nq, S)`` f32."""
+    b, s, nq, hd = q.shape
+    _check_launch({"q": q, "k": k, "v": v}, (torch.bfloat16,), TRAIN_HEAD_DIMS)
+    out = torch.empty_like(q)
+    lse = torch.empty(b, nq, s, dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, s,
+            nq, k.shape[2], hd, int(causal), 1.0 / hd ** 0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        err = _kernel_fn("attention_fwd_lse_launch")(*args)
+    if err != 0:
+        raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
+    LAUNCHES["attention"] += 1
+    return out, lse
+
+
+def _launch_bwd(d_out: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor, lse: torch.Tensor,
+                causal: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels on plain CUDA tensors: dq, dk, dv."""
+    b, s, nq, hd = q.shape
+    _check_launch({"q": q, "k": k, "v": v, "out": out, "d_out": d_out}, (torch.bfloat16,),
+                  TRAIN_HEAD_DIMS)
+    if lse.shape != (b, nq, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous ({b}, {nq}, {s}) float32 tensor")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    dsum = torch.empty(b, nq, s, dtype=torch.float32, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), d_out.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, s, nq, k.shape[2], hd, int(causal), 1.0 / hd ** 0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        err = _kernel_fn("attention_bwd_launch")(*args)
+    if err != 0:
+        raise RuntimeError(f"attention backward launch failed: CUDA error {err}")
+    LAUNCHES["attention_bwd"] += 1
+    return dq, dk, dv
+
+
+@torch.library.custom_op("repro_torch::flash_attention_lse", mutates_args=())
+def flash_attention_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward as an operator: the kernel on CUDA tensors,
+    the plain version on CPU ones."""
+    if q.device.type == "cpu":
+        return tuple(t.contiguous() for t in attention_lse_plain(q, k, v, causal=causal))
+    return _launch_lse(q, k, v, causal)
+
+
+@flash_attention_lse_op.register_fake
+def _flash_attention_lse_fake(q, k, v, causal):
+    b, s, nq, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, nq, s), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def flash_attention_bwd_op(d_out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                           causal: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward as an operator: the kernels on CUDA tensors, the plain
+    version on CPU ones."""
+    if q.device.type == "cpu":
+        return tuple(t.contiguous() for t in
+                     attention_bwd_plain(d_out, q, k, v, out, lse, causal=causal))
+    return _launch_bwd(d_out, q, k, v, out, lse, causal)
+
+
+@flash_attention_bwd_op.register_fake
+def _flash_attention_bwd_fake(d_out, q, k, v, out, lse, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def attention_bwd_flops(d_out_shape, q_shape, k_shape, v_shape, o_shape, lse_shape,
+                        causal: bool, *args, **kwargs) -> int:
+    """10·B·nq·S²·hd (QKᵀ recomputed, dO Vᵀ, dS K, dSᵀ Q and Pᵀ dO), halved
+    when causal."""
+    return 5 * attention_flops(q_shape, k_shape, v_shape, causal) // 2
+
+
+torch.utils.flop_counter.register_flop_formula(torch.ops.repro_torch.flash_attention_lse)(
+    attention_flops)
+torch.utils.flop_counter.register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)(
+    attention_bwd_flops)
+
+
+def _direct(q: torch.Tensor) -> bool:
+    """A plain tensor outside any dispatch mode: on the card the kernels
+    are launched without the operators."""
+    return type(q) is torch.Tensor and _get_current_dispatch_mode() is None
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``attention_train``: the training forward kernel, saving q, k, v, the
+    output and the rows' log-sum-exp; the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if _direct(q) and q.is_cuda:
+            out, lse = _launch_lse(q, k, v, causal)
+        else:
+            out, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        d_out = d_out.contiguous()
+        if _direct(q) and q.is_cuda:
+            grads = _launch_bwd(d_out, q, k, v, out, lse, ctx.causal)
+        else:
+            grads = torch.ops.repro_torch.flash_attention_bwd(d_out, q, k, v, out, lse,
+                                                              ctx.causal)
+        return (*grads, None)
+
+
+def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """``attention_fwd``'s function, differentiable: ``(B, S, nq, hd)`` in q's
+    dtype.  On CUDA tensors the training kernels (bf16, head_dim 64 or
+    128; anything else raises), on CPU tensors the plain versions; under a
+    dispatch mode or on fake tensors, their operators."""
+    _check(q, k, v)
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), causal)

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.attention.attention import attention_fwd
+from repro_torch.kernels.attention.attention import attention_fwd, attention_train
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -23,3 +23,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel on a CUDA tensor, the plain version on a CPU tensor."""
     b, s, nq, hd = q.shape
     return attention_fwd(q, k, v, causal=causal).reshape(b, s, nq * hd)
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True) -> torch.Tensor:
+    """``flash_attention``, differentiable: the training kernels and their
+    backward (``attention_train``), ``(B, S, nq * hd)``."""
+    b, s, nq, hd = q.shape
+    return attention_train(q, k, v, causal=causal).reshape(b, s, nq * hd)

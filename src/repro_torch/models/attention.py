@@ -1,18 +1,22 @@
 """Grouped-query attention for training, prefill and decode, and
 cross-attention (port of ``repro/models/attention.py``).
 
-Training takes the reference's own math: einsum ``_sdpa`` with the additive
-``causal_mask`` (none for the encoder's non-causal layers), or the
-query-chunked ``_blocked_sdpa`` above ``BLOCKED_ATTN_THRESHOLD``
-(``train_self_attention``), so autograd differentiates plain torch ops.
+Training (``train_self_attention``) on the card, in bf16 at head_dim 64
+or 128, attends through the port's training kernels and their backward
+(``kernels.attention.ops.flash_attention_train``, ``csrc/attention.cu``).
+Everywhere else it takes the reference's own math: einsum ``_sdpa`` with
+the additive ``causal_mask`` (none for the encoder's non-causal layers), or
+the query-chunked ``_blocked_sdpa`` above ``BLOCKED_ATTN_THRESHOLD``, so
+autograd differentiates plain torch ops: CPU tensors, f32, fake tensors
+(the dry run), DTensors under a policy and head_dim 32.
 Serving differs from the reference on purpose: full-sequence
 self-attention, causal in prefill and non-causal in whisper's encoder,
 goes through the port's attention kernel
 (``kernels.attention.ops.flash_attention``, ``csrc/attention.cu`` on the
 card), where the reference computes it with ``_sdpa`` to keep its dry-run's
 XLA cost analysis readable.  The function is the same; the results are
-allclose.  The kernel has no backward and refuses to be differentiated on
-the card.  Decode keeps ``_sdpa`` over the whole cache with the ``<= pos``
+allclose.  The serving kernel itself is not differentiable on the card.
+Decode keeps ``_sdpa`` over the whole cache with the ``<= pos``
 mask, as the reference does.  ``cross_attention`` (queries from the text,
 keys and values from the encoder's output or the image embeddings) is
 ``_sdpa`` everywhere, as in the reference: the kernel takes one S for q
@@ -42,7 +46,8 @@ from repro_torch.distributed.context import (
     split_dim,
     write_along,
 )
-from repro_torch.kernels.attention.ops import flash_attention
+from repro_torch.kernels.attention.attention import TRAIN_HEAD_DIMS, attention_flops
+from repro_torch.kernels.attention.ops import flash_attention, flash_attention_train
 from repro_torch.models.layers import RMSNorm, apply_rope, dense_init_, weight
 
 NEG_INF = -1e30
@@ -291,26 +296,50 @@ def attend(p: Attention, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def self_attention(p: Attention, cfg, x: torch.Tensor,
                    positions: torch.Tensor | None = None,
                    causal: bool = True) -> torch.Tensor:
-    """Full self-attention through the kernel (prefill and
-    ``Model.forward``; not differentiable on the card). x: (B, S, D)."""
+    """Full self-attention through the serving kernel (prefill and
+    ``Model.forward``; not differentiable on the card: training takes
+    ``train_self_attention``). x: (B, S, D)."""
     with obs.span("attention"):
         if positions is None:
             positions = sequence_positions(x)
         return attend(p, *_project_qkv(p, cfg, x, positions), causal=causal)
 
 
+def _takes_train_kernel(q: torch.Tensor) -> bool:
+    """Whether training attends through the kernels: a real (not fake, not
+    DTensor) CUDA tensor in bf16 at a head_dim they take."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return (q.is_cuda and q.dtype == torch.bfloat16 and q.shape[-1] in TRAIN_HEAD_DIMS
+            and not isinstance(q, FakeTensor) and not is_dtensor(q))
+
+
 def train_self_attention(p: Attention, cfg, x: torch.Tensor,
                          positions: torch.Tensor | None = None,
                          causal: bool = True) -> torch.Tensor:
     """Full self-attention for training, differentiable (the reference's
-    ``self_attention``): ``_blocked_sdpa`` above ``BLOCKED_ATTN_THRESHOLD``
-    when S is a multiple of ``Q_CHUNK``, else ``_sdpa``. x: (B, S, D)."""
+    ``self_attention``): the training kernels where ``_takes_train_kernel``,
+    at any S; else ``_blocked_sdpa`` above ``BLOCKED_ATTN_THRESHOLD`` when S
+    is a multiple of ``Q_CHUNK``, else ``_sdpa``.  Counts
+    ``attention.train_calls`` and, on the kernels' route,
+    ``attention.train_kernel`` and the call's forward operations and bytes
+    (``attention.train_kernel_flops``: QKᵀ and PV, halved when causal;
+    ``attention.train_kernel_bytes``: q, k, v read and the output written).
+    x: (B, S, D)."""
     with obs.span("attention"):
         s = x.shape[1]
         if positions is None:
             positions = sequence_positions(x)
         q, k, v = _project_qkv(p, cfg, x, positions)
-        if s > BLOCKED_ATTN_THRESHOLD and s % Q_CHUNK == 0:
+        obs.count("attention.train_calls", 1)
+        if _takes_train_kernel(q):
+            obs.count("attention.train_kernel", 1)
+            obs.count("attention.train_kernel_flops",
+                      attention_flops(q.shape, k.shape, v.shape, causal))
+            obs.count("attention.train_kernel_bytes",
+                      q.element_size() * (2 * q.numel() + k.numel() + v.numel()))
+            out = flash_attention_train(q, k, v, causal=causal)
+        elif s > BLOCKED_ATTN_THRESHOLD and s % Q_CHUNK == 0:
             out = _blocked_sdpa(q, k, v, causal)
         else:
             out = _sdpa(q, k, v, causal_mask(s, s, device=x.device) if causal else None,

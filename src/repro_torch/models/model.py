@@ -17,8 +17,9 @@ embeddings, is ``kv_src``: prefill puts it in the cache and decode reads
 it there.  Decode takes ``tokens (B, 1)``, the cache and one position for
 the whole batch.
 
-``loss`` is differentiable: it attends through ``_sdpa`` under remat, as
-the reference trains, and adds the MoE aux losses of a config with
+``loss`` is differentiable: it attends through ``train_self_attention``
+under remat (the training kernels on the card in bf16, else ``_sdpa`` as the
+reference trains), and adds the MoE aux losses of a config with
 experts.  ``forward``, ``prefill`` and ``decode_step`` run under
 ``torch.no_grad()`` and self-attend through the kernel (the encoder's
 non-causal layers too), so serving builds no autograd graph although the
@@ -179,7 +180,7 @@ class Model(nn.Module):
 
     def train_forward(self, batch: dict) -> torch.Tensor:
         """Logits (B, S, vocab_padded) in the compute dtype through the
-        training path: ``_sdpa`` attention, remat as ``cfg.remat`` says.
+        training path: ``train_self_attention``, remat as ``cfg.remat`` says.
         Differentiable."""
         return self._train_stack(batch)[0]
 

@@ -12,7 +12,8 @@ causal self-attention, then cross-attention over the encoder's output),
 
 Two blocks run the full sequence: ``apply_block`` attends through the
 kernel (serving's ``Model.forward`` and the encoder in serving),
-``apply_train_block`` through ``_sdpa`` (``Model.loss``); both return the
+``apply_train_block`` through ``train_self_attention`` (``Model.loss``:
+the training kernels on the card in bf16, else ``_sdpa``); both return the
 layer's MoE aux losses.  Cross-attention reads ``ctx["kv_src"]`` and is
 ``_sdpa`` in both.  ``stack_forward`` runs either, sums the aux losses over
 the MoE layers and averages them, and with ``remat`` recomputes each
@@ -178,7 +179,7 @@ def apply_block(p: Block, cfg, x: torch.Tensor, ctx: dict, attention=self_attent
 
 def apply_train_block(p: Block, cfg, x: torch.Tensor, ctx: dict):
     """One block over the full sequence, differentiable: the reference's
-    ``apply_block``, attending through ``_sdpa``."""
+    ``apply_block``, attending through ``train_self_attention``."""
     return apply_block(p, cfg, x, ctx, attention=train_self_attention)
 
 
