@@ -6,7 +6,11 @@ is one ``ArchConfig`` registered by its own module
 ``reduced()`` yields the small same-family config of the CPU tests.  The
 port serves the dense, MoE, hybrid and SSM families (``repro_torch.models``);
 the encoder-decoder and vision-language configs are here so that every
-field stays comparable with the reference.
+field stays comparable with the reference.  The port adds the fields of
+``PORT_ONLY``, traits of published models the reference does not run
+(Jamba's attention without positions, its dt/B/C norms, top-k gates left
+unnormalised); at their defaults the port computes what the reference
+does, and ``reference_fields`` gives a config as the reference's fields.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ class ArchConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 10_000.0
+    attn_rope: bool = True  # False: self-attention without positions (Jamba's)
     tie_embeddings: bool = False
     # MoE
     n_experts: int = 0
@@ -56,11 +61,14 @@ class ArchConfig:
     moe_every: int = 1  # a MoE layer every `moe_every` layers (jamba: 2)
     dense_residual: bool = False  # arctic: dense FFN in parallel with MoE
     moe_capacity_factor: float = 1.25
+    norm_topk_prob: bool = True  # renormalise the top-k gates to sum to one
     # hybrid (jamba): one attention layer per `attn_period` layers, rest SSM
     attn_period: int = 0  # 0 -> pure attention stack
     ssm_d_state: int = 16
     ssm_d_conv: int = 4
     ssm_expand: int = 2
+    # RMS norms on mamba's dt, B and C after x_proj (Jamba's dt/b/c_layernorm)
+    ssm_dt_bc_norm: bool = False
     # rwkv
     rwkv_head_dim: int = 64
     # encoder-decoder (whisper): decoder uses n_layers above
@@ -187,6 +195,22 @@ class ArchConfig:
             dtype="float32",
             fsdp=False,
         )
+
+
+# the port's fields the reference's ArchConfig lacks, at the values that
+# compute what the reference computes
+PORT_ONLY = {"attn_rope": True, "norm_topk_prob": True, "ssm_dt_bc_norm": False}
+
+
+def reference_fields(cfg: ArchConfig) -> dict:
+    """``cfg``'s fields as the reference's ``ArchConfig`` has them; raises
+    ``ValueError`` where a field of ``PORT_ONLY`` departs from its default
+    (the reference has no such model)."""
+    fields = dataclasses.asdict(cfg)
+    departs = {k: fields[k] for k, v in PORT_ONLY.items() if fields[k] != v}
+    if departs:
+        raise ValueError(f"{cfg.arch}: the reference has no counterpart of {departs}")
+    return {k: v for k, v in fields.items() if k not in PORT_ONLY}
 
 
 ARCH_IDS = [

@@ -80,9 +80,10 @@ class Attention(nn.Module):
             dense_init_(w, generator)
 
 
-def _project_qkv(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor,
-                 rope: bool = True):
-    """x: (B, S, D) -> q (B, S, nq, hd), k/v (B, S, nkv, hd)."""
+def _project_qkv(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """x: (B, S, D) -> q (B, S, nq, hd), k/v (B, S, nkv, hd); rotated by
+    ``positions`` unless the config's attention has none (``attn_rope``
+    off: prefill, the cache and decode then hold unrotated q and k)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     q = x @ gather_fsdp(p.wq)
@@ -98,7 +99,7 @@ def _project_qkv(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor,
     if cfg.qk_norm:
         q = p.q_norm(q)
         k = p.k_norm(k)
-    if rope:
+    if cfg.attn_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

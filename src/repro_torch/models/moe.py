@@ -2,11 +2,13 @@
 
 GShard/Switch routing, as in the reference: the tokens are split into
 groups of ``_group_size(t)``; in each group every token picks its top-k
-experts by an f32 router softmax, the k gates are renormalised, and each
-expert takes at most ``_capacity(...)`` (token, slot) pairs, in slot-major
-order (every token's first choice before any token's second); the rest are
-dropped.  The expert products are the reference's einsums as
-``torch.bmm`` over the expert axis.
+experts by an f32 router softmax, the k gates are renormalised (unless the
+config's ``norm_topk_prob`` is off, as Jamba publishes it; the reference
+always renormalises), and each expert takes at most ``_capacity(...)``
+(token, slot) pairs, in slot-major order (every token's first choice
+before any token's second); the rest are dropped.  The expert products are
+the reference's einsums as ``torch.bmm`` over the expert axis, over the
+slot rows in blocks where the hidden would pass ``layers.HIDDEN_BUDGET``.
 
 Dispatch and combine differ in form, not in result.  The reference
 multiplies by one-hot (group, token, expert, capacity) tensors; the port
@@ -38,7 +40,7 @@ from repro_torch.distributed.context import (
     mesh_placements,
     row_axes,
 )
-from repro_torch.models.layers import MLP, dense_init_, weight
+from repro_torch.models.layers import MLP, dense_init_, in_row_blocks, weight
 
 # tokens per routing group at most (the reference's §Perf choice)
 GROUP_TARGET = 512
@@ -90,22 +92,25 @@ class Routing:
     logits: torch.Tensor  # (G, T, E) f32
     probs: torch.Tensor  # (G, T, E) f32 softmax
     idx: torch.Tensor  # (G, T, k) int64 expert of each slot
-    gate: torch.Tensor  # (G, T, k) f32 gates, renormalised over the k
+    gate: torch.Tensor  # (G, T, k) f32 gates (renormalised over the k by default)
     pos: torch.Tensor  # (G, T, k) int64 place in the expert's queue
     keep: torch.Tensor  # (G, T, k) bool: pos < capacity
 
 
-def route(router: torch.Tensor, xg: torch.Tensor, k: int, cap: int) -> Routing:
+def route(router: torch.Tensor, xg: torch.Tensor, k: int, cap: int,
+          renormalise: bool = True) -> Routing:
     """Top-k routing of grouped tokens ``xg`` (G, T, D) with slot-major
     queue priority: a (token, slot) pair's place in its expert's queue is
     the number of pairs of earlier slots, and of earlier tokens in its
-    slot, that chose the same expert."""
+    slot, that chose the same expert.  The gates are the top-k
+    probabilities, renormalised to sum to one if ``renormalise``."""
     g, t, _ = xg.shape
     e = router.shape[1]
     logits = xg.float() @ router
     probs = torch.softmax(logits, dim=-1)
     gate, idx = torch.topk(probs, k, dim=-1)
-    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    if renormalise:
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     slot_major = idx.transpose(1, 2).reshape(g, k * t)  # (G, k*T): slot 0's tokens first
     chosen = F.one_hot(slot_major, e)  # (G, k*T, E)
     before = torch.cumsum(chosen, dim=1) - chosen
@@ -131,7 +136,7 @@ def _routed(router: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor, wo: torch.
     cap = _capacity(group, k, e, cap_factor)
     xf = x.reshape(t, d)
     with obs.span("moe.route"):
-        r = route(router, xf.reshape(n_groups, group, d), k, cap)
+        r = route(router, xf.reshape(n_groups, group, d), k, cap, cfg.norm_topk_prob)
 
     with obs.span("moe.dispatch"):
         # local expert e's slot (g, c) is row (e * G + g) * C + c of the expert batch
@@ -150,10 +155,7 @@ def _routed(router: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor, wo: torch.
         obs.count("moe.slots", n_slots)
         obs.count("moe.kept", mine.sum())
     with obs.span("moe.experts"):
-        g_act = torch.bmm(xe, wg)
-        h_act = torch.bmm(xe, wi)
-        act = F.silu(g_act.float()).to(x.dtype) * h_act
-        ye = torch.bmm(act, wo).reshape(n_slots, d)
+        ye = experts(xe, wg, wi, wo).reshape(n_slots, d)
     with obs.span("moe.combine"):
         # combine in the compute dtype, as the reference's combine tensor is
         gate_kept = (r.gate * mine).to(x.dtype)
@@ -166,6 +168,20 @@ def _routed(router: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor, wo: torch.
     lb_loss = e * torch.mean(torch.sum(frac_tokens * frac_probs, dim=-1))
     z_loss = torch.mean(torch.square(torch.logsumexp(r.logits, dim=-1)))
     return out, lb_loss, z_loss
+
+
+def _swiglu(xe: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor):
+    g_act = torch.bmm(xe, wg)
+    h_act = torch.bmm(xe, wi)
+    act = F.silu(g_act.float()).to(xe.dtype) * h_act
+    return torch.bmm(act, wo)
+
+
+def experts(xe: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor):
+    """Each expert's SwiGLU over its slot rows: xe (E, n, D) -> (E, n, D),
+    silu in f32; in blocks of slot rows where the (E, n, eff) hidden would
+    pass ``layers.HIDDEN_BUDGET`` bytes."""
+    return in_row_blocks(lambda t: _swiglu(t, wg, wi, wo), xe, 1, wg.shape[-1])
 
 
 def _routed_sharded(p: MoE, cfg, x, cap_factor: float, pol):

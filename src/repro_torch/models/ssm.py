@@ -2,7 +2,9 @@
 ``repro/models/ssm.py``).
 
 - ``mamba``: the selective SSM block of Jamba's non-attention layers
-  (data-dependent dt/B/C, diagonal A, depthwise causal conv).
+  (data-dependent dt/B/C, diagonal A, depthwise causal conv; with the
+  config's ``ssm_dt_bc_norm``, RMS norms on dt, B and C after ``x_proj``,
+  as the published Jamba models have them and the reference does not).
 - ``rwkv_time_mix``: RWKV-6 "Finch" time mix with data-dependent
   per-channel decay (a matrix-valued state per head), and
   ``rwkv_channel_mix``, the squared-ReLU channel-mix FFN.
@@ -14,7 +16,10 @@ from chunk to chunk in sequence, a few ops a chunk.  ``_rwkv_scan`` takes
 the pairs of a chunk from differences of cumulative log-decays;
 ``_mamba_scan``, whose decay differs per (channel, state), takes a
 log-depth scan of (decay, input) pairs inside each chunk and its own
-backward (``_MambaScan``), which keeps only the chunks' input states.  The
+backward (``_MambaScan``), which keeps only the chunks' input states; its
+forward and backward run ``SCAN_GROUP`` chunks at a time, the state (or
+its adjoint) carried from group to group, so their temporaries are bounded
+by the group and not by the sequence.  The
 recurrent state is f32 as in the reference, and the results are allclose
 to its ``lax.scan``.  Decode is the single-step form of the same
 recurrence with the state held in the serving cache.  Leaves that the
@@ -27,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.distributed.context import (
     contiguous_grad,
     gather_fsdp,
@@ -65,6 +71,10 @@ class Mamba(nn.Module):
         self.A_log = weight(d_in, ds, **f32)
         self.D = weight(d_in, **f32, fill=1.0)
         self.out_proj = weight(d_in, d, **kw)
+        if cfg.ssm_dt_bc_norm:
+            self.dt_norm = RMSNorm(dt_rank, dtype, device)
+            self.b_norm = RMSNorm(ds, dtype, device)
+            self.c_norm = RMSNorm(ds, dtype, device)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
@@ -132,6 +142,8 @@ def _mamba_ssm_inputs(p: Mamba, cfg, xc: torch.Tensor):
     # or DTensor would have to make dt_bias partial to add it
     proj = reduce_partial(xc @ gather_fsdp(p.x_proj))
     dt_low, bmat, cmat = torch.split(proj, [dt_rank, ds, ds], dim=-1)
+    if cfg.ssm_dt_bc_norm:
+        dt_low, bmat, cmat = p.dt_norm(dt_low), p.b_norm(bmat), p.c_norm(cmat)
     dt = dt_low @ gather_fsdp(p.dt_proj) + p.dt_bias
     return F.softplus(dt.float()), bmat.float(), cmat.float()
 
@@ -187,30 +199,52 @@ def _mamba_states(da, db, h0):
     return loc + prod * h_in[:, :, None], h_in, h
 
 
-# Chunks a group of ``_MambaScan``'s backward, which runs the chunks in
-# groups, the last first: its (B, chunks, c, d_in, ds) f32 temporaries
-# live for one group at a time.
-SCAN_BACKWARD_GROUP = 16
+def _mamba_group(dtc, bc, xc, cc, a, h0):
+    """One group of chunked dt, B, x, C (B, n, c, ...) from the state
+    ``h0``: (y (B, n, c, d_in), the chunks' input states, the final state)."""
+    da, db = _mamba_pairs(dtc, bc, xc, a)
+    h, h_in, h_last = _mamba_states(da, db, h0)
+    return torch.einsum("bncis,bncs->bnci", h, cc), h_in, h_last
+
+
+# Chunks a group of ``_MambaScan``'s forward and backward, which run the
+# chunks in groups (the backward the last first): their (B, chunks, c,
+# d_in, ds) f32 temporaries live for one group at a time (1.1 GB a tensor
+# at 4 prompts and Jamba's d_in of 8,192).
+SCAN_GROUP = 16
+
+
+def _scan_forward(dt, bmat, cmat, xcf, a, keep_states: bool):
+    """The chunked scan's forward, ``SCAN_GROUP`` chunks at a time, the
+    state carried from group to group: (y (B, S, d_in), the chunks' input
+    states (B, N, d_in, ds) if ``keep_states`` else None, the final state)."""
+    b, s, d_in = xcf.shape
+    c = min(SCAN_CHUNK, s)
+    chunked = [_chunked(t, c) for t in (dt, bmat, xcf, cmat)]
+    n = chunked[0].shape[1]
+    h = xcf.new_zeros(b, d_in, a.shape[1])
+    y = xcf.new_empty(b, n, c, d_in)
+    h_in = xcf.new_empty(b, n, d_in, a.shape[1]) if keep_states else None
+    for lo in range(0, n, SCAN_GROUP):
+        hi = min(n, lo + SCAN_GROUP)
+        y[:, lo:hi], group_in, h = _mamba_group(*(t[:, lo:hi] for t in chunked), a, h)
+        if keep_states:
+            h_in[:, lo:hi] = group_in
+    return y.reshape(b, -1, d_in)[:, :s], h_in, h
 
 
 class _MambaScan(torch.autograd.Function):
-    """The selective scan in chunks, with its backward: the adjoint of h,
-    ``g_t = dy_t C_t + da_{t+1} g_{t+1}``, is the same scan run backwards
-    (chunks in reverse, each in log depth; ``SCAN_BACKWARD_GROUP`` chunks
-    at a time, the adjoint carried from group to group).  Saves only the
-    inputs and the chunks' input states; the backward recomputes each
-    token's h."""
+    """The selective scan in chunks (``_scan_forward``), with its backward:
+    the adjoint of h, ``g_t = dy_t C_t + da_{t+1} g_{t+1}``, is the same
+    scan run backwards (chunks in reverse, each in log depth, a group at a
+    time, the adjoint carried from group to group).  Saves only the inputs
+    and the chunks' input states; the backward recomputes each token's h."""
 
     @staticmethod
     def forward(ctx, dt, bmat, cmat, xcf, a):
-        b, s, d_in = xcf.shape
-        c = min(SCAN_CHUNK, s)
-        da, db = _mamba_pairs(*(_chunked(t, c) for t in (dt, bmat, xcf)), a)
-        h0 = xcf.new_zeros(b, d_in, a.shape[1])
-        h, h_in, h_last = _mamba_states(da, db, h0)
-        y = torch.einsum("bncis,bncs->bnci", h, _chunked(cmat, c))
+        y, h_in, h = _scan_forward(dt, bmat, cmat, xcf, a, keep_states=True)
         ctx.save_for_backward(dt, bmat, cmat, xcf, a, h_in)
-        return y.reshape(b, -1, d_in)[:, :s], h_last
+        return y, h
 
     @staticmethod
     def backward(ctx, dy, dh_last):
@@ -220,8 +254,8 @@ class _MambaScan(torch.autograd.Function):
         chunked = [_chunked(t, c) for t in (dt, bmat, xcf, cmat, dy)] + [h_in]
         n = h_in.shape[1]
         carry, parts, d_a = dh_last, [], None
-        for hi in range(n, 0, -SCAN_BACKWARD_GROUP):
-            lo = max(0, hi - SCAN_BACKWARD_GROUP)
+        for hi in range(n, 0, -SCAN_GROUP):
+            lo = max(0, hi - SCAN_GROUP)
             group = chunked if hi - lo == n else [t[:, lo:hi] for t in chunked]
             dtc, bc, xc, cc, dyc, hin = group
             da, db = _mamba_pairs(dtc, bc, xc, a)
@@ -260,8 +294,13 @@ class _MambaScan(torch.autograd.Function):
 
 def _mamba_scan(dt, bmat, cmat, xcf, a):
     """The selective scan: dt, xcf (B, S, d_in), bmat, cmat (B, S, ds), a
-    (d_in, ds), from a zero state.  Returns (y (B, S, d_in), final h)."""
-    return _MambaScan.apply(dt, bmat, cmat, xcf, a)
+    (d_in, ds), from a zero state.  Returns (y (B, S, d_in), final h).
+    Without a gradient to take (serving) it keeps no chunk's input state."""
+    args = (dt, bmat, cmat, xcf, a)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _MambaScan.apply(*args)
+    y, _, h = _scan_forward(*args, keep_states=False)
+    return y, h
 
 
 def _sharded_scan(scan, args: tuple, dims: tuple, out_dims: tuple):
@@ -333,24 +372,35 @@ def _silu_gate(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 
 def mamba(p: Mamba, cfg, x: torch.Tensor, return_state: bool = False):
-    """Full-sequence mamba mixer. x: (B, S, D) -> (B, S, D) [, final state]."""
-    xin, z = (x @ gather_fsdp(p.in_proj)).chunk(2, dim=-1)
-    xc = F.silu(_mamba_conv_full(p, xin).float()).to(x.dtype)
-    dt, bmat, cmat = _mamba_ssm_inputs(p, cfg, xc)
-    a = -torch.exp(p.A_log)  # (d_in, ds)
-    xcf = xc.float()
-    b, s, d_in = xc.shape
-    ys, h = _sharded_scan(_mamba_scan, (dt, bmat, cmat, xcf, a),
-                          ((0, 2), (0, None), (0, None), (0, 2), (None, 0)), ((0, 2), (0, 1)))
-    y = ys + xcf * p.D  # (B, S, d_in)
-    out = _silu_gate(y.to(x.dtype), z) @ gather_fsdp(p.out_proj)
-    if not return_state:
-        return out
-    # conv state: the last (K-1) pre-conv inputs
-    km1 = cfg.ssm_d_conv - 1
-    xin_f = xin.float()
-    conv = xin_f[:, s - km1:, :] if s >= km1 else F.pad(xin_f, (0, 0, km1 - s, 0))
-    return out, {"h": h, "conv": conv}
+    """Full-sequence mamba mixer. x: (B, S, D) -> (B, S, D) [, final state].
+    Spans ``mamba`` (the mixer) and ``mamba.scan``; counters
+    ``mamba.scan_tokens`` (B·S) and ``mamba.scan_calls``."""
+    with obs.span("mamba", device=x.device):
+        xin, z = (x @ gather_fsdp(p.in_proj)).chunk(2, dim=-1)
+        xc = F.silu(_mamba_conv_full(p, xin).float()).to(x.dtype)
+        dt, bmat, cmat = _mamba_ssm_inputs(p, cfg, xc)
+        a = -torch.exp(p.A_log)  # (d_in, ds)
+        xcf = xc.float()
+        b, s, d_in = xc.shape
+        del xc  # the f32 copies live from here; at 4 x 32k tokens each is 4.3 GB
+        obs.count("mamba.scan_tokens", b * s)
+        obs.count("mamba.scan_calls", 1)
+        with obs.span("mamba.scan", device=x.device):
+            ys, h = _sharded_scan(_mamba_scan, (dt, bmat, cmat, xcf, a),
+                                  ((0, 2), (0, None), (0, None), (0, 2), (None, 0)),
+                                  ((0, 2), (0, 1)))
+        del dt, bmat, cmat
+        y = (ys + xcf * p.D).to(x.dtype)  # (B, S, d_in)
+        del ys, xcf
+        out = _silu_gate(y, z) @ gather_fsdp(p.out_proj)
+        if not return_state:
+            return out
+        # conv state: the last (K-1) pre-conv inputs (cut before the copy:
+        # a view would keep the whole sequence's f32 inputs in the cache)
+        km1 = cfg.ssm_d_conv - 1
+        xin_f = xin[:, max(0, s - km1):, :].float()
+        conv = xin_f if s >= km1 else F.pad(xin_f, (0, 0, km1 - s, 0))
+        return out, {"h": h, "conv": conv}
 
 
 def mamba_state_init(cfg, batch: int, device=None) -> dict:
@@ -362,21 +412,23 @@ def mamba_state_init(cfg, batch: int, device=None) -> dict:
 
 
 def mamba_decode(p: Mamba, cfg, x: torch.Tensor, state: dict):
-    """Single-token decode. x: (B, 1, D) -> (out (B, 1, D), new state)."""
-    xin, z = (x @ gather_fsdp(p.in_proj)).chunk(2, dim=-1)  # (B, 1, d_in)
-    window = torch.cat([state["conv"], xin.float()], dim=1)  # (B, K, d_in)
-    xc = torch.einsum("bkc,kc->bc", window, p.conv_w.float()) + p.conv_b.float()
-    xc = F.silu(xc)[:, None, :].to(x.dtype)  # (B, 1, d_in)
-    dt, bmat, cmat = _mamba_ssm_inputs(p, cfg, xc)
-    a = -torch.exp(p.A_log)
-    dt_t, b_t, c_t = dt[:, 0], bmat[:, 0], cmat[:, 0]
-    xc_f = xc[:, 0].float()
-    da = torch.exp(dt_t[:, :, None] * a[None, :, :])
-    db = dt_t[:, :, None] * b_t[:, None, :]
-    h = da * state["h"] + db * xc_f[:, :, None]
-    y = torch.einsum("bcs,bs->bc", h, c_t) + xc_f * p.D
-    y = _silu_gate(y[:, None, :].to(x.dtype), z)
-    return y @ gather_fsdp(p.out_proj), {"h": h, "conv": window[:, 1:, :]}
+    """Single-token decode (span ``mamba.decode``). x: (B, 1, D) -> (out
+    (B, 1, D), new state)."""
+    with obs.span("mamba.decode", device=x.device):
+        xin, z = (x @ gather_fsdp(p.in_proj)).chunk(2, dim=-1)  # (B, 1, d_in)
+        window = torch.cat([state["conv"], xin.float()], dim=1)  # (B, K, d_in)
+        xc = torch.einsum("bkc,kc->bc", window, p.conv_w.float()) + p.conv_b.float()
+        xc = F.silu(xc)[:, None, :].to(x.dtype)  # (B, 1, d_in)
+        dt, bmat, cmat = _mamba_ssm_inputs(p, cfg, xc)
+        a = -torch.exp(p.A_log)
+        dt_t, b_t, c_t = dt[:, 0], bmat[:, 0], cmat[:, 0]
+        xc_f = xc[:, 0].float()
+        da = torch.exp(dt_t[:, :, None] * a[None, :, :])
+        db = dt_t[:, :, None] * b_t[:, None, :]
+        h = da * state["h"] + db * xc_f[:, :, None]
+        y = torch.einsum("bcs,bs->bc", h, c_t) + xc_f * p.D
+        y = _silu_gate(y[:, None, :].to(x.dtype), z)
+        return y @ gather_fsdp(p.out_proj), {"h": h, "conv": window[:, 1:, :]}
 
 
 # ---------------------------------------------------------------------------

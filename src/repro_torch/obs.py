@@ -42,7 +42,8 @@ from torch.autograd import profiler as _profiler
 SPANS = ("train_step", "model.forward", "model.backward", "model.recompute",
          "optimizer.update", "engine.wave", "model.prefill", "model.decode_step",
          "engine.decode", "engine.sample", "attention", "mlp",
-         "moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+         "moe.route", "moe.dispatch", "moe.experts", "moe.combine",
+         "mamba", "mamba.scan", "mamba.decode")
 # the spans that key a counter
 PHASES = ("train_step", "model.prefill", "model.decode_step")
 

@@ -268,12 +268,12 @@ def _grads_close(p, x_grads: dict, ref_grads: dict, want_params: dict, msg: str)
         _close(g, ref_grads[key], f"{msg}: d {key}", tol=GRAD_TOL)
 
 
-@pytest.mark.parametrize("group", [ssm.SCAN_BACKWARD_GROUP, 1, 3])
+@pytest.mark.parametrize("group", [ssm.SCAN_GROUP, 1, 3])
 def test_mamba_gradients_match_reference(group, monkeypatch):
-    """Through the recomputing silu gate and the scan's backward, which
-    runs ``group`` chunks at a time (LONG is four chunks: one group, four,
-    or three and one)."""
-    monkeypatch.setattr(ssm, "SCAN_BACKWARD_GROUP", group)
+    """Through the recomputing silu gate and the scan's forward and
+    backward, which run ``group`` chunks at a time (LONG is four chunks:
+    one group, four, or three and one)."""
+    monkeypatch.setattr(ssm, "SCAN_GROUP", group)
     ref_cfg, cfg, p, rp, rng, x = _scan_inputs("jamba_v0_1_52b", 25, LONG)
     probe = _probe(rng, (2, LONG, cfg.d_model))
     probe_h = _probe(rng, (2,) + p.A_log.shape)

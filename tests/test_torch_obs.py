@@ -9,7 +9,8 @@
 - Remat's recompute opens one ``model.recompute`` a period, inside
   ``model.backward``, and no counter counts it.
 - The MoE's counters equal the routing's own numbers; the engine counts
-  every decode step and the ones whose token is served.
+  every decode step and the ones whose token is served; mamba counts each
+  scan's tokens once a phase, not in remat's recompute.
 """
 from __future__ import annotations
 
@@ -78,11 +79,13 @@ def moe_model():
 @pytest.fixture(scope="module")
 def profiled_events(moe_model):
     """Every host event of one MoE train step with remat and one served
-    wave, under a CPU profiler."""
+    wave, and one wave of the hybrid family, under a CPU profiler."""
+    hybrid = _model("jamba_v0_1_52b")  # the mamba spans
     obs.reset()
     with torch.profiler.profile() as prof:
         _train_step(moe_model)
         _serve(moe_model, [3, 3])
+        _serve(hybrid, [2, 2])
     obs.reset()
     return list(prof.events())
 
@@ -192,3 +195,22 @@ def test_engine_counts_decode_steps_and_the_used_ones(max_new, steps, used):
     assert snap["records"][wave]["tag"] == (0, len(max_new))
     assert wave == 0
     assert all("engine.wave" in _ancestors(snap["records"], i) for i in range(1, len(names)))
+
+
+def test_mamba_counts_each_scan_once_a_phase():
+    model = _model("jamba_v0_1_52b")
+    n_mamba = sum(1 for b in model.blocks if b.spec.mixer == "mamba")
+    with torch.profiler.profile():
+        _train_step(model)  # remat: the recompute scans again, uncounted
+        _serve(model, [2, 2])  # a prompt of 16, then decode: no scan
+    snap = obs.snapshot()
+    assert snap["counters"]["mamba.scan_calls"] == {"train_step": n_mamba,
+                                                    "model.prefill": n_mamba}
+    assert snap["counters"]["mamba.scan_tokens"] == {"train_step": n_mamba * 2 * 32,
+                                                     "model.prefill": n_mamba * 2 * 16}
+    records = snap["records"]
+    scans = [i for i, r in enumerate(records) if r["name"] == "mamba.scan"]
+    assert scans and all(records[records[i]["parent"]]["name"] == "mamba" for i in scans)
+    decodes = [i for i, r in enumerate(records) if r["name"] == "mamba.decode"]
+    assert len(decodes) == n_mamba * 2
+    assert all("model.decode_step" in _ancestors(records, i) for i in decodes)

@@ -63,7 +63,7 @@ from repro.models import Model as RefModel  # noqa: E402
 from repro.serve.legacy.engine import Request as RefRequest  # noqa: E402
 from repro.serve.legacy.engine import ServeEngine as RefServeEngine  # noqa: E402
 from repro.serve.legacy.serve_step import make_decode_step as ref_make_decode_step  # noqa: E402
-from repro_torch.configs.base import ArchConfig, get_arch  # noqa: E402
+from repro_torch.configs.base import ArchConfig, get_arch, reference_fields  # noqa: E402
 from repro_torch.interop import (  # noqa: E402
     context_inputs_numpy,
     lm_params_numpy,
@@ -167,7 +167,7 @@ def write_golden() -> None:
     """Serve each golden configuration with the JAX reference on the CPU."""
     records = []
     for name, cfg, seed in golden_configs():
-        ref_cfg = dataclasses.replace(ref_get_arch(cfg.arch), **dataclasses.asdict(cfg))
+        ref_cfg = dataclasses.replace(ref_get_arch(cfg.arch), **reference_fields(cfg))
         model = RefModel(ref_cfg)
         params = _jax_leaves(lm_params_numpy(cfg, seed))
         prompts = _prompts(cfg, seed)
@@ -195,7 +195,7 @@ def write_golden() -> None:
         logits = np.stack(steps, 1)  # (N_PROMPTS, MAX_NEW, vocab)
         top2 = np.sort(logits, axis=-1)[..., -2:]
         record = dict(
-            name=name, config=dataclasses.asdict(cfg), weight_seed=seed,
+            name=name, config=reference_fields(cfg), weight_seed=seed,
             prompts=prompts.tolist(), max_new=MAX_NEW, tokens=tokens.tolist(),
             margins=(top2[..., 1] - top2[..., 0]).tolist(),
             logits_shape=list(logits.shape), logits_f32_b64=_b64(logits),
@@ -219,7 +219,7 @@ def test_golden_file_covers_the_configurations():
     assert list(golden) == [name for name, _, _ in golden_configs()]
     for name, cfg, seed in golden_configs():
         g = golden[name]
-        assert g["config"] == dataclasses.asdict(cfg) and g["weight_seed"] == seed
+        assert g["config"] == reference_fields(cfg) and g["weight_seed"] == seed
         assert g["prompts"] == _prompts(cfg, seed).tolist()
         assert g["logits_shape"] == [N_PROMPTS, MAX_NEW, cfg.vocab]
         assert ("router_min_gap" in g) == bool(cfg.n_experts)
@@ -230,7 +230,7 @@ def test_golden_file_covers_the_configurations():
     # for depth (one period of the vision model's layer program), vocab and
     # dtype
     for name, arch, layers in zip(ON_CARD, ("qwen2_moe_a2_7b", "llama3_2_vision_90b"), (1, 5)):
-        published = dataclasses.asdict(get_arch(arch))
+        published = reference_fields(get_arch(arch))
         cut = golden[name]["config"]
         assert {k for k in cut if cut[k] != published[k]} == {"n_layers", "vocab", "dtype"}
         assert (cut["n_layers"], cut["vocab"], cut["dtype"]) == (layers, 1024, "float32")

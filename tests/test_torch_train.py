@@ -69,7 +69,7 @@ from repro.models import attention as ref_attention  # noqa: E402
 from repro.train import optimizer as ref_opt  # noqa: E402
 from repro.train.train_step import TrainConfig as RefTrainConfig  # noqa: E402
 from repro.train.train_step import make_train_step as ref_make_train_step  # noqa: E402
-from repro_torch.configs.base import ArchConfig, get_arch  # noqa: E402
+from repro_torch.configs.base import ArchConfig, get_arch, reference_fields  # noqa: E402
 from repro_torch.interop import (  # noqa: E402
     context_inputs_numpy,
     lm_params_numpy,
@@ -128,7 +128,7 @@ def golden_configs() -> list[tuple[str, ArchConfig, int]]:
 
 
 def ref_config(cfg: ArchConfig):
-    return dataclasses.replace(ref_get_arch(cfg.arch), **dataclasses.asdict(cfg))
+    return dataclasses.replace(ref_get_arch(cfg.arch), **reference_fields(cfg))
 
 
 def golden_data(cfg: ArchConfig, seed: int) -> SyntheticLM:
@@ -186,7 +186,7 @@ def write_golden() -> None:
                 params, state, m = step(params, state, batch)
                 steps.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
             jax.effects_barrier()
-        record_ = dict(name=name, config=dataclasses.asdict(cfg), weight_seed=seed,
+        record_ = dict(name=name, config=reference_fields(cfg), weight_seed=seed,
                        data_seed=100 + seed, steps=steps,
                        leaves=leaf_stats(jax.tree.map(np.asarray, params), init))
         if context:
@@ -425,7 +425,7 @@ def test_golden_file_covers_the_configurations():
     assert [g["name"] for g in golden["configs"]] == [n for n, _, _ in golden_configs()]
     assert {n.split(".")[0] for n, _, _ in golden_configs()} == {"qwen3_0_6b", *FAMILIES}
     for (name, cfg, seed), g in zip(golden_configs(), golden["configs"]):
-        assert g["config"] == dataclasses.asdict(cfg) and g["weight_seed"] == seed
+        assert g["config"] == reference_fields(cfg) and g["weight_seed"] == seed
         assert len(g["steps"]) == GOLDEN_STEPS
         assert g.get("card_only", False) == (name in CARD_ONLY)
         assert g.get("tolerance") == GOLDEN_TOL_OVERRIDES.get(name)
