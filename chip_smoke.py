@@ -399,6 +399,16 @@ ATTN_LSE_ATOL = 2e-2
 # B4's backward is timed at the benchmark's qwen3 training call:
 # (batch, S, query heads, kv heads, head_dim), causal
 ATTN_TRAIN_CALL = (4, 4096, 16, 8, 128)
+# The selective-scan kernel is timed at one Jamba layer's scan in the
+# benchmark's hybrid cell, bf16: (prompts, S, d_inner, d_state)
+SSM_SCAN_CALL = (4, 32768, 8192, 16)
+# exponentials an SM's special-function units give a clock (H100: 16)
+SFU_EXP_PER_CLOCK = 16
+# the kernel against the plain version (tests/test_torch_ssm_scan_card.py
+# states why): the final state channel by channel, y against its largest
+# element (bf16: one ulp of rounding apart, with room)
+SSM_STATE_TOL = 1e-3
+SSM_Y_TOL_BF16 = 2.0 ** -7
 SERVE_ARCH = "qwen3_0_6b"
 SERVE_BATCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 8, 1024, 32
 SERVE_MAX_SEQ = 1056
@@ -2717,6 +2727,8 @@ def phase_serve_families(dev, card: str) -> dict:
         # B4 a wave: each self-attention layer's prefill, each encoder layer
         n_attn = cfg.n_enc_layers + sum(1 for spec in layer_program(cfg)
                                         if spec.mixer in ("attn", "self_cross"))
+        # the selective-scan kernel a wave: each Mamba layer's prefill
+        n_mamba = sum(1 for spec in layer_program(cfg) if spec.mixer == "mamba")
         max_seq = prompt_len + FAMILY_NEW
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2773,6 +2785,9 @@ def phase_serve_families(dev, card: str) -> dict:
               f"{n_attn} attention layers x {waves} waves")
         check((counts["attention"] > 0) == (arch != "rwkv6_1_6b"),
               f"{arch}: attention launches {counts['attention']}")
+        check(counts["ssm_scan"] == n_mamba * waves,
+              f"{arch}: selective-scan launches {counts['ssm_scan']} != "
+              f"{n_mamba} Mamba layers x {waves} waves")
 
         prefill_s = sum(t for k, t in phases if k == "prefill")
         decode_s = sum(t for k, t in phases if k == "decode")
@@ -2793,6 +2808,7 @@ def phase_serve_families(dev, card: str) -> dict:
                     prefill_tok_per_s=waves * SERVE_BATCH * prompt_len / prefill_s,
                     decode_tok_per_s=decode_steps * SERVE_BATCH / decode_s,
                     decode_steps=decode_steps, attention_launches=counts["attention"],
+                    ssm_scan_launches=counts["ssm_scan"],
                     decode_step_kernels=step.get("device_events"),
                     decode_step_idle_share=step.get("idle_share"),
                     decode_step_busy_ms=step.get("busy_ms"),
@@ -4052,6 +4068,77 @@ def phase_attention_bwd_timing(dev) -> dict:
                 shape=[b, s, nq, nkv, hd], dtype="torch.bfloat16", flops=flops, bytes=nbytes)
 
 
+def phase_ssm_scan_timing(dev, smi: str) -> dict:
+    """The selective-scan kernel (``ssm_scan_fwd``) at one Jamba layer's
+    call (``SSM_SCAN_CALL``, bf16), back to back and as a replayed graph,
+    ``TIMING_ROUNDS`` rounds, beside the plain version's time
+    (``selective_scan_plain``, the chunked scan); checked against it (y
+    within ``SSM_Y_TOL_BF16`` of its largest element, the final state
+    within ``SSM_STATE_TOL`` channel by channel).  No PyTorch call computes
+    the selective scan: ``library_ms`` is None.  The bound is the larger of
+    the bytes (x, dt and y at d_inner, B and C at d_state, once each, and
+    the final state) over 3.35 TB/s and the exponentials (B·S·d_inner·
+    d_state) over the SMs' special-function units at the card's largest SM
+    clock (``nvidia-smi clocks.max.sm``)."""
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels.ssm_scan import ssm_scan_fwd
+    from repro_torch.models import ssm
+
+    b, s, d_in, ds = SSM_SCAN_CALL
+    g = torch.Generator(device=dev).manual_seed(2032)
+    dt = torch.exp(torch.rand(b, s, d_in, device=dev, generator=g) * math.log(100.0)
+                   + math.log(1e-3))
+    dt_raw = (dt + torch.log(-torch.expm1(-dt))).to(torch.bfloat16)
+    del dt
+    x = torch.nn.functional.silu(torch.randn(b, s, d_in, device=dev, generator=g)).to(
+        torch.bfloat16)
+    bmat, cmat = (torch.randn(b, s, ds, device=dev, generator=g) for _ in range(2))
+    a = -torch.exp(torch.log(torch.arange(1, ds + 1.0, device=dev))
+                   + 0.1 * torch.randn(d_in, ds, device=dev, generator=g))
+    d = 1.0 + 0.1 * torch.randn(d_in, device=dev, generator=g)
+    args = (dt_raw, bmat, cmat, x, a, d)
+    kernel = lambda: ssm_scan_fwd(*args)  # noqa: E731
+    rounds = {"ms": [], "graph_ms": []}
+    for _ in range(TIMING_ROUNDS):
+        rounds["graph_ms"].append(graph_ms(kernel, reps=3))
+        rounds["ms"].append(cuda_ms(kernel, reps=5))
+    t = dict(rounds=TIMING_ROUNDS, library=None, library_ms=None, graph_library_ms=None)
+    for key, values in rounds.items():
+        t.update({key: statistics.median(values), key + "_min": min(values),
+                  key + "_max": max(values), key + "_rounds": values})
+    plain = lambda: ssm.selective_scan_plain(*args)  # noqa: E731
+    plain_ms = cuda_ms(plain, reps=2, warmup=1)
+    (y, h), (want_y, want_h) = kernel(), plain()
+    y_err = float((y.float() - want_y.float()).abs().max())
+    y_rel = y_err / float(want_y.float().abs().max())
+    check(y_rel <= SSM_Y_TOL_BF16, f"ssm_scan's y differs from the plain version's by {y_rel}")
+    gap = (h - want_h).abs().amax(dim=(0, 2)) / want_h.abs().amax(dim=(0, 2)).clamp_min(1e-30)
+    state_err = float(gap.max())
+    check(state_err <= SSM_STATE_TOL,
+          f"ssm_scan's final state differs from the plain version's by {state_err}")
+    del y, h, want_y, want_h
+    props = torch.cuda.get_device_properties(dev)
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                           "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True, timeout=60)
+    check(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr.strip()}")
+    clock_hz = float(proc.stdout.split()[0]) * 1e6
+    exps = b * s * d_in * ds
+    nbytes = 2 * 3 * b * s * d_in + 4 * 2 * b * s * ds + 4 * b * d_in * ds
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    exp_ms = exps / (props.multi_processor_count * SFU_EXP_PER_CLOCK * clock_hz) * 1e3
+    return dict(plain_ms=plain_ms, **t, bound_ms=max(bytes_ms, exp_ms),
+                bound_by="bytes" if bytes_ms >= exp_ms else "exponentials",
+                bytes_ms=bytes_ms, exp_ms=exp_ms, sm_clock_max_mhz=clock_hz / 1e6,
+                sms=props.multi_processor_count, max_abs_err=y_err, y_rel_err=y_rel,
+                state_err=state_err, shape=[b, s, d_in, ds], dtype="torch.bfloat16",
+                exponentials=exps, bytes=nbytes, card=smi)
+
+
 def phase_sass(lib: Path) -> dict:
     """Whether the built attention library's SASS holds ``ATTENTION_SASS``
     (wgmma and TMA loads), as ``cuobjdump -sass`` shows it.  Without
@@ -4117,9 +4204,10 @@ def main() -> None:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        libs = dict(zip(KERNELS, pool.map(lambda k: _build.build(k, verbose=True), KERNELS)))
-    for name in KERNELS:
+    built = KERNELS + ("ssm_scan",)  # the selective scan's library too, for its ptxas report
+    with ThreadPoolExecutor(len(built)) as pool:
+        libs = dict(zip(built, pool.map(lambda k: _build.build(k, verbose=True), built)))
+    for name in built:
         _build.load(name)
         lib = libs[name]
         emit(dict(phase="build", kernel=name, library=str(lib.relative_to(ROOT))
@@ -4211,6 +4299,12 @@ def main() -> None:
     timing["attention"]["backward_call"] = phase_attention_bwd_timing(dev)
     worst["attention"] = max(worst["attention"],
                              timing["attention"]["encoder_call"]["max_abs_err"])
+    # the selective scan at one Jamba layer's call; its launches in phase
+    # serve_families (jamba's Mamba layers' prefills)
+    timing["ssm_scan"] = phase_ssm_scan_timing(dev, smi)
+    emit(dict(phase="kernel_timing", kernel="ssm_scan",
+              families_launches=sum(f["ssm_scan_launches"] for f in families.values()),
+              **timing["ssm_scan"]))
     launches = {"dram_timing": info["counts"]["dram_timing"],
                 "edge_update": device_info["counts"]["edge_update"],
                 "spmv": device_info["counts"]["spmv"],

@@ -12,14 +12,15 @@ point of the port takes ``device=None``:
 ``LAUNCHES`` holds one plain integer per kernel, bumped by its wrapper where
 it launches the kernel and nowhere else, so a run can show that the main
 path went through the kernels; ``attention_bwd`` counts the attention
-backward's host calls (three kernels each).
+backward's host calls (three kernels each); ``ssm_scan`` the selective
+scan's.
 """
 from __future__ import annotations
 
 import torch
 
 LAUNCHES: dict[str, int] = {"dram_timing": 0, "edge_update": 0, "spmv": 0,
-                             "attention": 0, "attention_bwd": 0}
+                             "attention": 0, "attention_bwd": 0, "ssm_scan": 0}
 
 
 def resolve_device(device=None) -> torch.device:

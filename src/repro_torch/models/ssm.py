@@ -19,7 +19,11 @@ log-depth scan of (decay, input) pairs inside each chunk and its own
 backward (``_MambaScan``), which keeps only the chunks' input states; its
 forward and backward run ``SCAN_GROUP`` chunks at a time, the state (or
 its adjoint) carried from group to group, so their temporaries are bounded
-by the group and not by the sequence.  The
+by the group and not by the sequence.  Serving's prefill on the card
+(``_selective_scan``: a CUDA tensor of which no gradient is wanted) runs
+the scan, with its softplus and D skip, as one hand-written kernel
+(``kernels/ssm_scan``, ``csrc/ssm_scan.cu``) that keeps the state in
+registers; the chunked scan is its plain version and training's path.  The
 recurrent state is f32 as in the reference, and the results are allclose
 to its ``lax.scan``.  Decode is the single-step form of the same
 recurrence with the state held in the serving cache.  Leaves that the
@@ -31,6 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch import obs
 from repro_torch.distributed.context import (
@@ -135,7 +140,8 @@ def _mamba_conv_sharded(p: Mamba, x):
 
 
 def _mamba_ssm_inputs(p: Mamba, cfg, xc: torch.Tensor):
-    """Data-dependent dt, B, C (f32) from the conv output xc (B, S, d_in)."""
+    """Data-dependent dt before its softplus (xc's dtype) and B, C (f32)
+    from the conv output xc (B, S, d_in)."""
     _, dt_rank = mamba_dims(cfg)
     ds = cfg.ssm_d_state
     # x_proj is row-parallel: its partial sums are reduced before the split,
@@ -144,8 +150,7 @@ def _mamba_ssm_inputs(p: Mamba, cfg, xc: torch.Tensor):
     dt_low, bmat, cmat = torch.split(proj, [dt_rank, ds, ds], dim=-1)
     if cfg.ssm_dt_bc_norm:
         dt_low, bmat, cmat = p.dt_norm(dt_low), p.b_norm(bmat), p.c_norm(cmat)
-    dt = dt_low @ gather_fsdp(p.dt_proj) + p.dt_bias
-    return F.softplus(dt.float()), bmat.float(), cmat.float()
+    return dt_low @ gather_fsdp(p.dt_proj) + p.dt_bias, bmat.float(), cmat.float()
 
 
 # Tokens a chunk of the chunked scans (``_mamba_scan``, ``_rwkv_scan``).
@@ -303,6 +308,43 @@ def _mamba_scan(dt, bmat, cmat, xcf, a):
     return y, h
 
 
+def selective_scan_plain(dt, bmat, cmat, xc, a, d):
+    """The fused selective scan's plain version: dt before its softplus and
+    xc (B, S, d_in) in the model's dtype, bmat, cmat (B, S, ds) f32, a
+    (d_in, ds), d (d_in,).  Returns (y (B, S, d_in) in xc's dtype, final h
+    (B, d_in, ds) f32): ``_mamba_scan`` of ``softplus(dt)`` and xc in f32,
+    then the D skip, rounded once to xc's dtype."""
+    xcf = xc.float()
+    ys, h = _mamba_scan(F.softplus(dt.float()), bmat, cmat, xcf, a)
+    return (ys + xcf * d).to(xc.dtype), h
+
+
+def _takes_scan_kernel(args: tuple) -> bool:
+    """Whether the selective scan runs the kernel (``kernels/ssm_scan``):
+    real CUDA tensors (not fake, no dispatch mode watching the ops) of which
+    no gradient is wanted, as in serving's prefill."""
+    xc = args[3]
+    return (xc.is_cuda and type(xc) is torch.Tensor and _get_current_dispatch_mode() is None
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in args)))
+
+
+def _selective_scan(dt, bmat, cmat, xc, a, d):
+    """The selective scan with its softplus and D skip
+    (``selective_scan_plain``'s arguments and results), on one of two
+    routes: the kernel ``ssm_scan_fwd`` where ``_takes_scan_kernel``, else
+    the plain version, whose ``_mamba_scan`` takes ``_MambaScan`` when a
+    gradient is wanted.  Counts ``mamba.scan_kernel`` (1 on the kernel's
+    route, else 0)."""
+    args = (dt, bmat, cmat, xc, a, d)
+    kernel = _takes_scan_kernel(args)
+    obs.count("mamba.scan_kernel", int(kernel))
+    if kernel:
+        from repro_torch.kernels.ssm_scan import ssm_scan_fwd
+
+        return ssm_scan_fwd(*args)
+    return selective_scan_plain(*args)
+
+
 def _sharded_scan(scan, args: tuple, dims: tuple, out_dims: tuple):
     """``scan(*args)`` for plain tensors.  On DTensors it runs on each
     rank's shard through ``local_map``, so a scan of S tokens costs S steps
@@ -374,24 +416,25 @@ def _silu_gate(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 def mamba(p: Mamba, cfg, x: torch.Tensor, return_state: bool = False):
     """Full-sequence mamba mixer. x: (B, S, D) -> (B, S, D) [, final state].
     Spans ``mamba`` (the mixer) and ``mamba.scan``; counters
-    ``mamba.scan_tokens`` (B·S) and ``mamba.scan_calls``."""
+    ``mamba.scan_tokens`` (B·S), ``mamba.scan_calls`` and
+    ``mamba.scan_kernel`` (``_selective_scan``)."""
     with obs.span("mamba", device=x.device):
         xin, z = (x @ gather_fsdp(p.in_proj)).chunk(2, dim=-1)
-        xc = F.silu(_mamba_conv_full(p, xin).float()).to(x.dtype)
+        # channels contiguous, as the scan kernel reads them: the conv's
+        # output is laid out sequence-first; the cast to x's dtype lays it
+        # out, and where there is no cast (an f32 model) .contiguous() does
+        xc = F.silu(_mamba_conv_full(p, xin).float()).to(
+            x.dtype, memory_format=torch.contiguous_format).contiguous()
         dt, bmat, cmat = _mamba_ssm_inputs(p, cfg, xc)
         a = -torch.exp(p.A_log)  # (d_in, ds)
-        xcf = xc.float()
-        b, s, d_in = xc.shape
-        del xc  # the f32 copies live from here; at 4 x 32k tokens each is 4.3 GB
+        b, s, _ = xc.shape
         obs.count("mamba.scan_tokens", b * s)
         obs.count("mamba.scan_calls", 1)
         with obs.span("mamba.scan", device=x.device):
-            ys, h = _sharded_scan(_mamba_scan, (dt, bmat, cmat, xcf, a),
-                                  ((0, 2), (0, None), (0, None), (0, 2), (None, 0)),
-                                  ((0, 2), (0, 1)))
-        del dt, bmat, cmat
-        y = (ys + xcf * p.D).to(x.dtype)  # (B, S, d_in)
-        del ys, xcf
+            y, h = _sharded_scan(_selective_scan, (dt, bmat, cmat, xc, a, p.D),
+                                 ((0, 2), (0, None), (0, None), (0, 2), (None, 0), (None, 0)),
+                                 ((0, 2), (0, 1)))
+        del dt, bmat, cmat, xc
         out = _silu_gate(y, z) @ gather_fsdp(p.out_proj)
         if not return_state:
             return out
@@ -421,7 +464,7 @@ def mamba_decode(p: Mamba, cfg, x: torch.Tensor, state: dict):
         xc = F.silu(xc)[:, None, :].to(x.dtype)  # (B, 1, d_in)
         dt, bmat, cmat = _mamba_ssm_inputs(p, cfg, xc)
         a = -torch.exp(p.A_log)
-        dt_t, b_t, c_t = dt[:, 0], bmat[:, 0], cmat[:, 0]
+        dt_t, b_t, c_t = F.softplus(dt[:, 0].float()), bmat[:, 0], cmat[:, 0]
         xc_f = xc[:, 0].float()
         da = torch.exp(dt_t[:, :, None] * a[None, :, :])
         db = dt_t[:, :, None] * b_t[:, None, :]

@@ -10,13 +10,26 @@ f32 tensors (Python floats would round them otherwise).
 ``moment_dtype="bfloat16"`` keeps m in bf16 (v too with ``aggressive``),
 rounded from f32 on every update.
 
-The update takes a leaf ``UPDATE_CHUNK`` elements at a time.  Its f32
-temporaries (the gradient, both moments, their corrections, the step and
-the weight widened: about nine times a slice's elements at once) would
-otherwise reach 34 GB on jamba's (16, 4,096, 14,336) expert stack and 38 GB
-on llama-vision's 1.05 B-entry embedding, more than the card holds beside
-the weights and moments.  Every op is elementwise, so the numbers are the
-same.
+The update takes the leaves' flat slices ``UPDATE_CHUNK`` elements at a
+time.  Its f32 temporaries (the gradient, both moments, their corrections,
+the step and the weight widened: about seven times a group's elements at
+once) would otherwise reach 34 GB on jamba's (16, 4,096, 14,336) expert
+stack and 38 GB on llama-vision's 1.05 B-entry embedding, more than the
+card holds beside the weights and moments.  A leaf larger than that is cut
+into slices; slices smaller than that are packed into groups of at most
+``UPDATE_CHUNK`` elements, each group's slices sharing a decay and a
+parameter dtype, and each elementwise op of the update is one ``_foreach``
+call over the group.  On a model of many small leaves (qwen3-0.6B's 310)
+that takes the host's launches from about 25 a leaf to 2 (the casts of the
+gradient and the weight), so the card no longer waits on them.  A slice of
+``FOREACH_MIN_ALONE`` elements or more is updated alone by plain ops: its
+device time (about 180 bytes an element, 0.25 ms at 4 M) outweighs its
+launches, and a ``_foreach`` kernel, at most a few hundred blocks a
+launch, moves those bytes slower than the plain elementwise kernels (a
+model of large leaves, qwen2-moe's expert stacks, would lose on them what
+the launches save).  Every op is elementwise and in the same order on
+every slice, so the numbers are the same however the leaves are cut,
+grouped and routed.
 
 On DTensor parameters (``train_step.jit_train_step``) the state mirrors
 their placements (``state_specs``; the step stays a plain 0-d tensor,
@@ -39,6 +52,7 @@ from repro_torch.distributed.sharding import P
 from repro_torch.models.layers import dtype_of
 
 UPDATE_CHUNK = 1 << 26  # elements of a leaf updated at once (f32 temporaries ~2.4 GB)
+FOREACH_MIN_ALONE = 1 << 22  # a slice this large is updated alone, by plain ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,29 +156,77 @@ def update(cfg: OptimizerConfig, grads: dict, state: dict, params: dict):
         gnorm = global_norm(grads[n] for n in params)
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
 
-        b1, b2 = cfg.beta1, cfg.beta2
         stepf = step.to(torch.float32)
-        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=stepf.device), stepf)
-        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=stepf.device), stepf)
+        bc1 = 1 - torch.pow(torch.tensor(cfg.beta1, dtype=torch.float32, device=stepf.device), stepf)
+        bc2 = 1 - torch.pow(torch.tensor(cfg.beta2, dtype=torch.float32, device=stepf.device), stepf)
 
+        groups: dict = {}  # (decay, dtype) -> [slices, elements]
         for name, p in params.items():
-            decay = cfg.weight_decay and _decay_mask(name)
+            key = (bool(cfg.weight_decay and _decay_mask(name)), p.dtype)
             flat = (_local(p).view(-1), _local(state["m"][name]).view(-1),
                     _local(state["v"][name]).view(-1), _local(grads[name]).reshape(-1))
-            for w, m, v, g in zip(*(t.split(UPDATE_CHUNK) for t in flat)):
-                g = g.float() * scale
-                m32 = b1 * m.float() + (1 - b1) * g
-                v32 = b2 * v.float() + (1 - b2) * g * g
-                mhat = m32 / bc1
-                vhat = v32 / bc2
-                delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-                if decay:
-                    delta = delta + cfg.weight_decay * w.float()
-                w.copy_(w.float() - lr * delta)
-                m.copy_(m32)
-                v.copy_(v32)
+            for sl in zip(*(t.split(UPDATE_CHUNK) for t in flat)):
+                if sl[0].numel() >= FOREACH_MIN_ALONE:
+                    _adamw_alone(cfg, *sl, key[0], scale, lr, bc1, bc2)
+                    continue
+                group = groups.setdefault(key, [[], 0])
+                if group[0] and group[1] + sl[0].numel() > UPDATE_CHUNK:
+                    _adamw(cfg, group[0], key[0], scale, lr, bc1, bc2)
+                    group[:] = [[], 0]
+                group[0].append(sl)
+                group[1] += sl[0].numel()
+        for (decay, _), (slices, _) in groups.items():
+            _adamw(cfg, slices, decay, scale, lr, bc1, bc2)
         state["step"] = step
         return state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _adamw(cfg: OptimizerConfig, slices: list, decay: bool, scale, lr, bc1, bc2):
+    """AdamW on ``slices``, flat ``(w, m, v, g)`` views of one dtype each,
+    in place: per element, in f32, ``g = g * scale``, ``m = b1 m + (1 - b1)
+    g``, ``v = b2 v + (1 - b2) g g``, ``w = w - lr (m / bc1 / (sqrt(v /
+    bc2) + eps) [+ wd w])``, each op one ``_foreach`` call over the slices."""
+    ws, ms, vs, gs = zip(*slices)
+    b1, b2 = cfg.beta1, cfg.beta2
+    g = torch._foreach_mul([x.float() for x in gs], scale)
+    m32 = torch._foreach_mul([x.float() for x in ms], b1)
+    t = torch._foreach_mul(g, 1 - b1)
+    torch._foreach_add_(m32, t)
+    v32 = torch._foreach_mul([x.float() for x in vs], b2)
+    t = torch._foreach_mul(g, 1 - b2)
+    torch._foreach_mul_(t, g)
+    torch._foreach_add_(v32, t)
+    del g, t
+    delta = torch._foreach_div(m32, bc1)
+    denom = torch._foreach_div(v32, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, cfg.eps)
+    torch._foreach_div_(delta, denom)
+    del denom
+    w32 = [x.float() for x in ws]
+    if decay:
+        torch._foreach_add_(delta, torch._foreach_mul(w32, cfg.weight_decay))
+    torch._foreach_mul_(delta, lr)
+    torch._foreach_sub_(w32, delta)
+    del delta
+    torch._foreach_copy_(ws, w32)
+    torch._foreach_copy_(ms, m32)
+    torch._foreach_copy_(vs, v32)
+
+
+def _adamw_alone(cfg: OptimizerConfig, w, m, v, g, decay: bool, scale, lr, bc1, bc2):
+    """``_adamw`` on one large flat slice, by plain ops in the same order."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    g = g.float() * scale
+    m32 = b1 * m.float() + (1 - b1) * g
+    v32 = b2 * v.float() + (1 - b2) * g * g
+    delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+    w32 = w.float()
+    if decay:
+        delta = delta + cfg.weight_decay * w32
+    w.copy_(w32 - lr * delta)
+    m.copy_(m32)
+    v.copy_(v32)
 
 
 def _placed_as(g, p):

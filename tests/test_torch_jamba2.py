@@ -151,6 +151,118 @@ def test_grouped_scan_forward_matches_one_group(group, monkeypatch):
     _close(h_serve, h, CUT_TOL)
 
 
+def _fused_args(s: int, dtype: torch.dtype, seed: int = 11, ds: int = 4):
+    """The fused scan's inputs as the mixer holds them: dt before its
+    softplus (a few tokens above the threshold of 20) and xc in ``dtype``,
+    B and C f32, A and D f32 as Mamba draws them."""
+    gen = torch.Generator().manual_seed(seed)
+    b, d_in = 2, 8
+    dt = torch.randn(b, s, d_in, generator=gen) - 3.0
+    dt[:, ::37, ::3] += 25.0
+    xc = torch.randn(b, s, d_in, generator=gen)
+    bmat, cmat = (torch.randn(b, s, ds, generator=gen) for _ in range(2))
+    a = -torch.exp(torch.log(torch.arange(1, ds + 1.0)) + 0.1 * torch.randn(d_in, ds, generator=gen))
+    d = 1.0 + 0.1 * torch.randn(d_in, generator=gen)
+    return dt.to(dtype), bmat, cmat, xc.to(dtype), a, d
+
+
+def _recurrence(dt, bmat, cmat, xc, a, d):
+    """The scan a token at a time in float64, as the kernel's head note
+    states it: (y, final h)."""
+    dt, x = torch.nn.functional.softplus(dt.double()), xc.double()
+    bmat, cmat, a, d = bmat.double(), cmat.double(), a.double(), d.double()
+    h = x.new_zeros(x.shape[0], x.shape[2], a.shape[1])
+    ys = []
+    for t in range(x.shape[1]):
+        h = torch.exp(dt[:, t, :, None] * a) * h + (dt[:, t] * x[:, t])[..., None] * bmat[:, t, None]
+        ys.append((h * cmat[:, t, None]).sum(-1) + x[:, t] * d)
+    return torch.stack(ys, dim=1), h
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 2, 3, ssm.SCAN_GROUP])
+def test_fused_plain_scan_matches_the_chunked_path(group, dtype, monkeypatch):
+    """The serving route on the CPU (``_selective_scan``, the kernel's plain
+    version) against the chunked path as the mixer ran it before the fused
+    signature, with the softplus, the D skip and the cast outside the scan:
+    the same operations, so y and the final h agree to ``CUT_TOL``, over
+    five chunks and a ragged sixth in groups of 1, 2, 3 or all of them; and
+    in float32 against the recurrence a token at a time."""
+    monkeypatch.setattr(ssm, "SCAN_GROUP", group)
+    args = _fused_args(5 * ssm.SCAN_CHUNK + 7, dtype)
+    dt, bmat, cmat, xc, a, d = args
+    with torch.no_grad():
+        y, h = ssm._selective_scan(*args)
+        xcf = xc.float()
+        ys, want_h = ssm._mamba_scan(torch.nn.functional.softplus(dt.float()), bmat, cmat, xcf, a)
+        want_y = (ys + xcf * d).to(dtype)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    _close(y.float(), want_y.float(), CUT_TOL)
+    _close(h, want_h, CUT_TOL)
+    if dtype == torch.float32:
+        ref_y, ref_h = _recurrence(*args)
+        _close(y.double(), ref_y)
+        _close(h.double(), ref_h)
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_the_cpu_scan_takes_the_plain_route(grad, monkeypatch):
+    """On the CPU the fused scan never takes the kernel: without a gradient
+    it runs the chunked forward and keeps no chunk's state; with one it
+    takes ``_MambaScan``, whose gradients reach dt, xc and D through the
+    softplus and the D skip.  ``mamba.scan_kernel`` counts 0 either way."""
+    counts, applied = [], []
+    monkeypatch.setattr(ssm.obs, "count", lambda name, value: counts.append((name, value)))
+    apply = ssm._MambaScan.apply
+    monkeypatch.setattr(ssm._MambaScan, "apply", lambda *a: applied.append(1) or apply(*a))
+    args = [t.requires_grad_() for t in _fused_args(2 * ssm.SCAN_CHUNK + 3, torch.float32)]
+    assert not ssm._takes_scan_kernel(tuple(args))
+    with torch.set_grad_enabled(grad):
+        y, h = ssm._selective_scan(*args)
+    assert counts == [("mamba.scan_kernel", 0)]
+    assert applied == ([1] if grad else [])
+    assert y.requires_grad is grad
+    if grad:
+        grads = torch.autograd.grad(y.square().sum() + h.sum(), [args[0], args[3], args[5]])
+        assert all(g is not None and bool(g.abs().sum() > 0) for g in grads)
+
+
+def test_the_kernel_wrapper_raises_on_what_it_does_not_take():
+    """``ssm_scan_fwd`` takes CUDA tensors at d_state 16 and nothing else:
+    no fallback to the plain version."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_fwd
+
+    args = _fused_args(9, torch.bfloat16, ds=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_scan_fwd(*args)
+    dt, bmat, cmat, xc, a, d = args
+    with pytest.raises(ValueError, match="d_state"):
+        ssm_scan_fwd(dt, bmat[..., :8], cmat[..., :8], xc, a[:, :8], d)
+
+
+def test_the_planted_scan_fault_still_bites_on_the_cpu(monkeypatch):
+    """``scan_carry_dropped`` (the benchmark's planted fault, in
+    ``_mamba_group``) still changes the CPU serving route's prefill."""
+    from perfbench.drivers.serve_hybrid import _drop_scan_carry
+
+    monkeypatch.setattr(ssm, "SCAN_GROUP", 1)
+    model, _ = _model(seed=3)
+    prompts = _tokens(2, 3 * ssm.SCAN_CHUNK + 5, 6)
+
+    def prefill():
+        logits, cache = model.prefill({"tokens": prompts}, model.init_cache(2, prompts.shape[1]))
+        return logits
+
+    clean = prefill()
+    undo = _drop_scan_carry()
+    try:
+        faulty = prefill()
+    finally:
+        undo()
+    assert not torch.allclose(faulty, clean, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(prefill(), clean, rtol=0, atol=0)
+
+
 def _experts_args(e=4, n=37, d=16, eff=24, seed=6):
     gen = torch.Generator().manual_seed(seed)
     return [(torch.randn(shape, generator=gen) / math.sqrt(shape[-2])).requires_grad_()

@@ -471,7 +471,7 @@ def test_remote_launches_reach_scheduler_stats(tmp_path):
         assert events[-1]["type"] == "done"
         launches = sched.stats()["launches"]
         assert launches == dict({k: 2 * n for k, n in LaunchingPool.DELTA.items()},
-                                attention=0, attention_bwd=0)
+                                attention=0, attention_bwd=0, ssm_scan=0)
     finally:
         agent.stop()
         sched.close()

@@ -39,7 +39,7 @@ ROOT = Path(__file__).resolve().parent.parent
 TWINS = ("bench_memory_torch", "bench_partition_torch", "bench_search_torch",
          "bench_serve_torch")
 NO_LAUNCH = {"dram_timing": 0, "edge_update": 0, "spmv": 0, "attention": 0,
-             "attention_bwd": 0}
+             "attention_bwd": 0, "ssm_scan": 0}
 
 
 def run_tiny(module: str, out: Path, *args: str) -> dict:

@@ -385,7 +385,7 @@ def test_server_submit_stream_stats_shutdown(tmp_path):
         assert stats["engine_version"] == ENGINE_VERSION and stats["device"] == "cpu"
         # on the CPU the plain versions launch no kernel
         assert stats["launches"] == dict(dram_timing=0, edge_update=0, spmv=0, attention=0,
-                                         attention_bwd=0)
+                                         attention_bwd=0, ssm_scan=0)
         status = client.job_status(res.job_id)
         assert status["finished"] and status["done"] == 2
         client.shutdown()

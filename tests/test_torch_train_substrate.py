@@ -198,6 +198,70 @@ def test_update_in_slices_is_bit_equal(moment_dtype, aggressive, monkeypatch):
             assert torch.equal(s0[key][n], s1[key][n]), (key, n)
 
 
+def _update_one_slice_at_a_time(cfg, grads, state, params):
+    """AdamW as plain per-slice ops, a leaf at a time: the numbers that the
+    grouped ``_foreach`` update has to give bit for bit."""
+    with torch.no_grad():
+        step = state["step"] + 1
+        lr = opt.schedule(cfg, step)
+        gnorm = opt.global_norm(grads[n] for n in params)
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+        b1, b2 = cfg.beta1, cfg.beta2
+        stepf = step.to(torch.float32)
+        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32), stepf)
+        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32), stepf)
+        for name, p in params.items():
+            flat = (p.view(-1), state["m"][name].view(-1), state["v"][name].view(-1),
+                    grads[name].reshape(-1))
+            for w, m, v, g in zip(*(t.split(opt.UPDATE_CHUNK) for t in flat)):
+                g = g.float() * scale
+                m32 = b1 * m.float() + (1 - b1) * g
+                v32 = b2 * v.float() + (1 - b2) * g * g
+                delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+                if cfg.weight_decay and opt._decay_mask(name):
+                    delta = delta + cfg.weight_decay * w.float()
+                w.copy_(w.float() - lr * delta)
+                m.copy_(m32)
+                v.copy_(v32)
+        state["step"] = step
+
+
+@pytest.mark.parametrize("alone", [1 << 22, 20])
+@pytest.mark.parametrize("chunk", [1 << 26, 100, 7])
+@pytest.mark.parametrize("moment_dtype,aggressive", [("float32", False), ("bfloat16", True)])
+def test_grouped_update_is_bit_equal_to_one_slice_at_a_time(moment_dtype, aggressive, chunk,
+                                                            alone, monkeypatch):
+    """Slices packed into groups (bf16 and f32 leaves, decayed and not, a
+    leaf larger than a group and leaves smaller) and updated by ``_foreach``
+    ops, beside slices large enough to be updated alone, give the numbers
+    of plain ops a slice at a time."""
+    monkeypatch.setattr(opt, "UPDATE_CHUNK", chunk)
+    monkeypatch.setattr(opt, "FOREACH_MIN_ALONE", alone)
+    shapes = {"blocks.0.attn.wq": ((6, 5), torch.bfloat16),
+              "blocks.0.norm1.scale": ((5,), torch.bfloat16),
+              "blocks.0.moe.wg": ((3, 16, 7), torch.bfloat16),
+              "blocks.0.moe.router": ((5, 3), torch.float32),
+              "blocks.0.mamba.A_log": ((4, 3), torch.float32),
+              "tok": ((40, 5), torch.bfloat16)}
+    ocfg = opt.OptimizerConfig(lr=1e-2, warmup_steps=1, moment_dtype=moment_dtype,
+                               aggressive=aggressive)
+    runs = []
+    for update in (opt.update, _update_one_slice_at_a_time):
+        gen = torch.Generator().manual_seed(31)
+        params = {n: torch.randn(s, generator=gen).to(dt) for n, (s, dt) in shapes.items()}
+        state = opt.init(ocfg, params)
+        for _ in range(3):
+            grads = {n: torch.randn(s, generator=gen).to(dt) for n, (s, dt) in shapes.items()}
+            update(ocfg, grads, state, params)
+        runs.append((params, state))
+    (p0, s0), (p1, s1) = runs
+    assert int(s0["step"]) == int(s1["step"]) == 3
+    for n in shapes:
+        assert torch.equal(p0[n], p1[n]), n
+        for key in ("m", "v"):
+            assert torch.equal(s0[key][n], s1[key][n]), (key, n)
+
+
 @pytest.mark.parametrize("arch", ["qwen3_0_6b", "qwen2_7b", "minitron_8b", "qwen2_moe_a2_7b",
                                   "arctic_480b", "jamba_v0_1_52b", "rwkv6_1_6b"])
 def test_decay_mask_agrees_on_every_name(arch):

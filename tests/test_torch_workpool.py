@@ -259,7 +259,7 @@ def test_run_chunk_reports_its_own_launch_delta(monkeypatch):
     finally:
         _platform.reset_launches()
     assert out["launches"] == dict(dram_timing=6, edge_update=0, spmv=1, attention=0,
-                                   attention_bwd=0)
+                                   attention_bwd=0, ssm_scan=0)
 
 
 # ---- scheduler: re-dispatch, poison breaker, corrupt records, cancel --------
@@ -325,7 +325,7 @@ def test_dispatch_carries_the_device_and_sums_worker_launches(tmp_path, monkeypa
         assert fn is worker_mod.run_chunk and args[4] is None and args[5] == "cpu"
         out = fn(*args)
         out["launches"] = dict(dram_timing=4, edge_update=2, spmv=0, attention=0,
-                               attention_bwd=0)
+                               attention_bwd=0, ssm_scan=0)
         fut.set_result(out)
         assert collect_events(job)[-1]["type"] == "done"
         stats = sched.stats()
